@@ -17,10 +17,10 @@ CPU (/root/reference/examples/benchmark/benchmark_linux_carma.csv row
 2. **The celerite conversion** (``get_celerite_coeffs`` + the
    semiseparable solver): works root-by-root with no Vandermonde
    stationary solve, so it stays finite at p = 256 — the numerically
-   robust way to evaluate high-order CARMA likelihoods, and on TPU it
-   rides the production solver.
+   robust way to evaluate high-order CARMA likelihoods, and on the
+   device it rides the production solver.
 
-Writes ``benchmarks/results/carma_tpu_sweep.csv`` with timing +
+Writes ``benchmarks/results/carma_gpu_sweep.csv`` with timing +
 cross-agreement columns for both routes (device and CPU-f64).
 """
 
@@ -28,6 +28,7 @@ import argparse
 import json
 import os
 import subprocess
+import tempfile
 import sys
 import time
 
@@ -144,7 +145,7 @@ def main():
         default=[1, 2, 4, 8, 16, 32, 64, 128, 256],
     )
     ap.add_argument("--out", type=str,
-                    default="benchmarks/results/carma_tpu_sweep.csv")
+                    default="benchmarks/results/carma_gpu_sweep.csv")
     ap.add_argument("--worker-cpu", type=str, default=None,
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -166,14 +167,19 @@ def main():
 
     enable_persistent_cache()
 
-    spec_path = "/tmp/carma_spec.json"
-    with open(spec_path, "w") as f:
+    # The float64 oracle runs in a worker pinned to the CPU before any
+    # backend starts, so it never opens the card.
+    with tempfile.NamedTemporaryFile("w", suffix=".json",
+                                     delete=False) as f:
         json.dump({"ps": args.ps, "n": args.n}, f)
+        spec_path = f.name
     proc = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--worker-cpu",
          spec_path],
         capture_output=True, text=True, timeout=3600,
+        env=dict(os.environ, JAX_PLATFORMS="cpu"),
     )
+    os.unlink(spec_path)
     ref = {}
     for line in proc.stdout.splitlines():
         if line.startswith("CPU_F64_RESULT "):

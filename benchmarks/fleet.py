@@ -1,11 +1,11 @@
 #!/usr/bin/env python
-"""BENCH: fleet-scale fitting on one chip (BASELINE configs[4]).
+"""BENCH: fleet-scale fitting on one GPU (BASELINE configs[4]).
 
 Two measurements at >=4k light curves (SHO kernel):
 
-1. fleet gradient throughput — one chain-folded fused4 launch evaluates
-   the fleet-summed log-likelihood + gradient for ALL curves
-   (data.make_fleet_loglik): curves/s per population-fit gradient.
+1. fleet gradient throughput — the fleet-summed log-likelihood +
+   gradient for ALL curves (data.make_fleet_loglik, the vmapped masked
+   scan): curves/s per population-fit gradient.
 
 2. per-curve independent NUTS fits — every curve gets its own
    3-parameter posterior, vmapped across the whole fleet
@@ -13,8 +13,7 @@ Two measurements at >=4k light curves (SHO kernel):
    likelihood: at N~150 the scan vmaps to a (B*chains, ...) batch the
    compiler tiles natively): end-to-end curves/s for full MCMC fits.
 
-Writes one JSON line per measurement; results go to
-benchmarks/results/fleet_tpu.json.
+Writes one JSON line per measurement; results go to ``--out``.
 """
 
 import argparse
@@ -41,7 +40,7 @@ def main():
     ap.add_argument("--samples", type=int, default=100)
     ap.add_argument("--chains", type=int, default=1)
     ap.add_argument("--chunk", type=int, default=25)
-    ap.add_argument("--out", default="benchmarks/results/fleet_tpu.json")
+    ap.add_argument("--out", default="benchmarks/results/fleet_gpu.json")
     args = ap.parse_args()
 
     from celerite_tpu import terms
@@ -80,7 +79,7 @@ def main():
     nmax = batch.t.shape[1]
     results = []
 
-    # ---- 1. fleet gradient: one folded launch, all curves ----
+    # ---- 1. fleet gradient: all curves at once ----
     fleet_ll = make_fleet_loglik(kernel, batch)
 
     @jax.jit
@@ -105,7 +104,7 @@ def main():
         "curves": B,
         "nmax": nmax,
         "launch_ms": round(1e3 * dt, 3),
-        "note": "fleet-summed ll+grad, one folded fused4 launch",
+        "note": "fleet-summed ll+grad, vmapped masked scan",
     }
     print(json.dumps(rec1), flush=True)
     results.append(rec1)

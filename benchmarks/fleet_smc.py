@@ -24,12 +24,11 @@ measured 0.21 -> 0.07 over the last five tempering stages even with
 target_ess_frac = 0.85.  That run conflates genuine asymmetric mass
 with sampler leakage; the symmetric parameterization separates them.)
 
-This is the committed evidence for BASELINE configs[4] at fleet scale:
->= 10k ragged curves through the fleet-folded likelihood
-(data.make_fleet_loglik: every curve is one virtual lane of the fused4
-kernels), ``sample_smc_sharded`` over the device mesh, mode weights +
-curves/s + stage count recorded to
-benchmarks/results/fleet_smc_tpu.json.
+This is the rig for BASELINE configs[4] at fleet scale: >= 10k ragged
+curves through the vmapped masked likelihood
+(data.batched_gp_log_likelihood), ``sample_smc_sharded`` over the device
+mesh, mode weights + curves/s + stage count recorded to a JSON file
+(``--out``).
 """
 
 import argparse
@@ -100,19 +99,16 @@ def main():
     ap.add_argument("--seed", type=int, default=4)
     ap.add_argument("--chunk", type=int, default=16,
                     help="particles per sequential slab (bounds the "
-                         "fleet-gradient saves memory: ~117 MB/particle "
-                         "at 10k curves)")
+                         "memory of the fleet gradient's saved residuals)")
     ap.add_argument("--out", type=str,
-                    default="benchmarks/results/fleet_smc_tpu.json")
+                    default="benchmarks/results/fleet_smc_gpu.json")
     args = ap.parse_args()
 
     import jax
     import jax.numpy as jnp
 
     from celerite_tpu import terms
-    from celerite_tpu.data import (
-        batched_gp_log_likelihood, make_fleet_loglik,
-    )
+    from celerite_tpu.data import batched_gp_log_likelihood
     from celerite_tpu.parallel import mesh as mesh_lib
     from celerite_tpu.parallel.sharded import sample_smc_sharded
     from celerite_tpu.utils import enable_persistent_cache
@@ -124,14 +120,8 @@ def main():
     t_data = time.perf_counter() - t0
     kernel = terms.ComplexTerm(log_a=0.0, log_c=-1.0, log_d=0.5)
 
-    if jax.default_backend() == "tpu":
-        fleet = make_fleet_loglik(kernel, batch)
-
-        def per_curve(theta):
-            return fleet(theta)
-    else:
-        def per_curve(theta):
-            return batched_gp_log_likelihood(kernel, theta, batch)
+    def per_curve(theta):
+        return batched_gp_log_likelihood(kernel, theta, batch)
 
     # Parameterization: theta = (log_a, log_c, d) with the frequency
     # LINEAR and the prior symmetric about pi.  In log_d the posterior

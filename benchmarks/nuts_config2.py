@@ -1,8 +1,8 @@
 #!/usr/bin/env python
-"""BENCH: config[2] NUTS end-to-end throughput on one chip.
+"""BENCH: config[2] NUTS end-to-end throughput on one GPU.
 
 The asteroseismic granulation model (BASELINE configs[2]): 2 SHOTerms +
-JitterTerm (7 params), N=1e5 points, 4 chains, fused fast-grad kernels.
+JitterTerm (7 params), N=1e5 points, 4 chains.
 Measures post-warmup sampling throughput (the north-star samples/s
 metric), with warmup and compile accounted separately.
 
@@ -40,7 +40,7 @@ def main():
              "chain count, then the sampling chains start from tiled "
              "warmup end states (draws from the stationary "
              "distribution) — amortizing the warmup wall clock over a "
-             "wider folded-lane launch",
+             "wider vmapped batch",
     )
     ap.add_argument("--warmup", type=int, default=200)
     ap.add_argument("--samples", type=int, default=600)
@@ -66,9 +66,8 @@ def main():
     ap.add_argument("--hmc-leapfrog", type=int, default=16)
     ap.add_argument(
         "--fast-compile", action="store_true",
-        help="first-contact escape hatch: pure-lax blocked solver with "
-             "plain AD (no Mosaic kernels; seconds-scale compile, "
-             "slower per-leapfrog)",
+        help="blocked solver with plain AD (GP.build_loglik "
+             "fast_compile)",
     )
     ap.add_argument(
         "--cpu-f64", action="store_true",

@@ -1,18 +1,18 @@
 #!/usr/bin/env python
-"""Wide-model (large-J) sweep on TPU: the reference's J axis, covered.
+"""Wide-model (large-J) sweep on one GPU: the reference's J axis, covered.
 
 Mirrors the reference benchmark grid's J dimension
 (/root/reference/examples/benchmark/run.py: j = 2^0..2^8 with rank 2j;
 anchor row `8,8,256,16384` = rank 512 at N=16384, 5.64 s on the
-reference CPU).  Above the fused-kernel gate (P <= 16) the
+reference CPU).  Above the Triton kernels' width (P <= 8) the
 block-parallel lax solver runs the cross-block Riccati composes as real
-(P, P) matmuls on the MXU — this sweep times its primal and AD
+(P, P) matmuls — this sweep times its primal and AD
 value+grad, plus the sequential scan for comparison, and reports f32
 accuracy vs the native C++ f64 oracle.
 
-Two-phase because the TPU platform has no f64:
+Two-phase (the timed run stays in float32):
   1. python benchmarks/wide.py --make-oracles   (CPU, f64 oracle JSON)
-  2. python benchmarks/wide.py                  (TPU timing + accuracy)
+  2. python benchmarks/wide.py                  (GPU timing + accuracy)
 
 Writes CSV: P,N,backend,primal_ms,grad_ms,rel_err_vs_f64.
 """
@@ -117,7 +117,7 @@ def make_oracles(args):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("-o", "--output",
-                    default="benchmarks/results/tpu_v5e_wide.csv")
+                    default="benchmarks/results/gpu_wide.csv")
     ap.add_argument("--budget", type=float, default=5.0,
                     help="skip larger N for a width once primal+grad "
                          "exceeds this (reference run.py early-exit)")

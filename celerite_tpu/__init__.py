@@ -1,9 +1,9 @@
-"""celerite_tpu: a TPU-native scalable Gaussian-Process inference engine.
+"""celerite_tpu: a scalable Gaussian-Process inference engine for accelerators.
 
 A brand-new JAX/XLA/Pallas implementation of the capabilities of the
 reference dfm/celerite package (scalable 1-D GP regression with
 exponential-times-sinusoid kernels and exact O(N) semiseparable solvers),
-re-architected for TPUs: pure-function scan solvers with total (ok, value)
+re-architected for data-parallel accelerators: pure-function scan solvers with total (ok, value)
 error semantics, statically-shaped kernel lowering for jit/vmap/grad, a
 block-parallel factorization, and a sharded inference layer (NUTS/HMC, ADVI,
 SMC) on top.

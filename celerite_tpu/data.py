@@ -10,7 +10,8 @@ batches for vmap/shard_map.  This module provides:
 - a simple binary container (``.lcb``) for bulk storage, mmap-read;
 - :func:`batched_gp_log_likelihood`: masked, vmapped GP log-likelihood
   over a batch — padded samples are exactly inert (A=1, U=V=0, resid=0),
-  the same trick the block-parallel solver uses for padding.
+  the same trick the block-parallel solver uses for padding;
+- :func:`make_fleet_loglik`: the same over many parameter sets.
 """
 
 from __future__ import annotations
@@ -227,68 +228,28 @@ def batched_gp_log_likelihood(kernel, params, batch, dtype=None):
 
 def make_fleet_loglik(kernel, batch: "LightCurveBatch", dtype=None,
                       n_chain=1):
-    """Build ``theta -> (lls, oks)`` over a fleet with one kernel launch.
+    """Build ``theta -> (lls, oks)`` over a fleet of light curves.
 
-    TPU path: fleet folding (ops/lanes4.make_plan4_curves) — every curve
-    occupies one virtual lane of the fused4 kernels, so the whole
-    batch's likelihoods (and, under ``jax.grad``, the shared-parameter
-    gradient) evaluate in a single launch with sequential depth Nmax,
-    instead of a vmapped per-curve scan.  Off TPU this falls back to
-    :func:`batched_gp_log_likelihood` (identical semantics).
+    ``n_chain == 1``: ``params`` is one (dim,) parameter vector and the
+    closure returns per-curve (lls, oks) of shape (B,), exactly
+    :func:`batched_gp_log_likelihood`.
 
-    ``n_chain > 1`` tiles the fleet per parameter set: the returned
-    closure then accepts ``(n_chain, dim)`` parameters and returns each
-    chain's fleet-summed (ll, ok) — the population-fit / SMC-particle
-    hot path (BASELINE configs[4]).
+    ``n_chain > 1``: the closure accepts ``(n_chain, dim)`` parameters
+    and returns each chain's fleet-summed (ll, ok) of shape (n_chain,)
+    — the population-fit / SMC-particle hot path (BASELINE configs[4]).
+    Both are the vmapped masked scan over curves.
     """
     import jax
     import jax.numpy as jnp
 
-    from .ops import fused4, lanes4
-    from .ops.lower import Coefficients
+    def per_curve(params):
+        return batched_gp_log_likelihood(kernel, params, batch, dtype=dtype)
 
-    if dtype is None:
-        dtype = jnp.result_type(float)
+    if n_chain == 1:
+        return per_curve
 
-    on_tpu = jax.default_backend() == "tpu"
-    if not on_tpu and n_chain == 1:
-        def fallback(params):
-            return batched_gp_log_likelihood(
-                kernel, params, batch, dtype=dtype
-            )
+    def per_chain(params):
+        lls, oks = jax.vmap(per_curve)(params)
+        return jnp.sum(lls, axis=-1), jnp.all(oks, axis=-1)
 
-        return fallback
-
-    jr, jc = kernel.padded_size
-    plan = lanes4.make_plan4_curves(
-        np.asarray(batch.t, np.float64),
-        np.asarray(batch.y, np.float64),
-        np.asarray(batch.yerr, np.float64) ** 2,
-        batch.lengths,
-        n_chain=n_chain,
-        dtype=np.dtype(dtype),
-    )
-    n_seg = n_chain if n_chain > 1 else plan.num_blocks
-    fn = fused4.build_ll_and_grad(
-        plan, jr, jc, n_chain=n_chain, n_seg=n_seg, state_seg=1,
-        interpret=not on_tpu,
-    )
-    ncur = batch.t.shape[0]
-
-    def cf_of(params):
-        coeffs = Coefficients(
-            *[c.astype(dtype)
-              for c in kernel.get_padded_coefficients(params)],
-            jitter=kernel.get_jitter(params).astype(dtype),
-        )
-        return lanes4.pack_cf(coeffs, dtype=dtype)
-
-    def loglik(params):
-        params = jnp.asarray(params, dtype)
-        if n_chain > 1:
-            cf = jax.vmap(cf_of)(params)
-            return fn(cf, plan.y)
-        lls, oks = fn(cf_of(params), plan.y)
-        return lls[:ncur], oks[:ncur]
-
-    return loglik
+    return per_chain

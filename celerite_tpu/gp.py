@@ -6,7 +6,7 @@ Behavioral parity with the reference ``celerite.GP``
 predict / sample / sample_conditional / apply_inverse / dot / get_matrix``
 and dirty-flag recomputation.
 
-TPU-native extension: :meth:`GP.build_loglik` returns a **pure, jittable**
+Accelerator extension: :meth:`GP.build_loglik` returns a **pure, jittable**
 function ``theta_active -> (log_likelihood, ok)`` over the unfrozen
 parameter vector, built on the statically-shaped padded term lowering.  The
 samplers in :mod:`celerite_tpu.inference` consume that function; the mutable
@@ -16,7 +16,6 @@ class API exists for reference compatibility and interactive use.
 from __future__ import annotations
 
 import math
-import os
 import warnings
 
 import numpy as np
@@ -174,11 +173,11 @@ class GP(ModelSet):
         """Current kernel coefficients + jitter as NumPy, via a cached
         CPU-jitted lowering.
 
-        The eager jnp term algebra pays one device dispatch per op — on
-        a remote-runtime backend that is ~200 ms per recompute, swamping
-        the native small-N solve (~0.1 ms).  One jitted call on the host
-        CPU backend costs ~50 us and the padded lowering is exact (the
-        zero-amplitude padding channels contribute nothing to K).
+        The eager jnp term algebra pays one device dispatch per op,
+        which swamps the native small-N solve.  One jitted call on the
+        host CPU backend avoids the accelerator round trip, and the
+        padded lowering is exact (the zero-amplitude padding channels
+        contribute nothing to K).
         """
         # Key the cache on the kernel object's identity: replacing (or
         # structurally mutating by swapping) gp.kernel must rebuild the
@@ -288,55 +287,37 @@ class GP(ModelSet):
         from :meth:`compute` are folded in if present.
 
         ``solver``: "seq" (sequential scan), "blocked" (block-parallel),
-        "pallas"/"fused" (Pallas TPU kernels), or "auto" (seq below 4096
-        points — the sequential scan is latency-bound at large N — then
-        the lane-layout fused kernel on TPU, blocked elsewhere).
+        "fused" (the Pallas/Triton kernels of :mod:`ops.fused`; GPU
+        only, ``"pallas"`` is an alias), or "auto" (see
+        :func:`celerite_tpu.ops.choose_solver`: seq below 4096 points,
+        then fused on a GPU for models the kernel supports, blocked
+        otherwise).
 
-        ``fast_grad``: wrap the closure in a custom VJP backed by the
-        hand-written Pallas gradient kernels.  ``True`` (default mode)
-        uses the analytic adjoint pair (ops/adjoint.py): one forward
-        sweep streaming the recursion state + one reverse sweep — cost
-        independent of the parameter count.  ``"tangent"`` uses the
-        tangent-augmented forward-mode kernel (ops/tangent.py), which
-        carries one extra state slot per parameter (the reference's
-        forward-mode coefficient AD design, solver.cpp:347).
+        ``fast_grad``: make the gradient reverse-mode AD through the
+        blocked solver, whatever solver computes the value (a custom
+        VJP), and attach it as ``value_ok_grad(theta) -> (ll, ok,
+        grad)``, one pass that never runs the value's solver.  The
+        fused route always does this.
 
         ``precision``: ``None`` (native f32/f64 per ``t``'s dtype) or
         ``"ds"`` — run the lowering AND the full solver recursion in
-        double-single (f32+f32, ~48-bit) arithmetic on TPU hardware
-        (ops/dsa, ops/dslower, ops/dsblocked).  This is the TPU-native
-        equivalent of the reference's float64 core
+        double-single (f32+f32, ~48-bit) arithmetic (ops/dsa,
+        ops/dslower, ops/dsblocked), the float32-only equivalent of the
+        reference's float64 core
         (/root/reference/cpp/include/celerite/solver/cholesky.h:41-210):
         on adversarial ill-conditioned stacks it recovers the f64
         answer to the f32-input information limit (~1e-8 relative)
         where plain f32 is off by percent or fails to factor.
-        Overrides ``solver``; ``fast_grad`` is ignored (plain jax AD
-        traces exactly through the compensated arithmetic).  General
-        (A, U, V) blocks are not supported in this mode.  Note: on CPU
-        (tests), XLA's AVX2 FMA contraction degrades compensated
-        arithmetic unless ``--xla_cpu_max_isa=SSE4_2`` is in
-        ``XLA_FLAGS`` (tests/conftest.py pins it); TPU preserves it
-        natively.
+        Overrides ``solver``; ``fast_grad`` is ignored (the closure
+        carries a forward-mode ds ``value_ok_grad``).  General (A, U, V)
+        blocks are not supported in this mode.  Compensated arithmetic
+        needs a compiler that does not contract ``a*b+c`` into an FMA:
+        on the CPU the tests pin ``--xla_cpu_max_isa=SSE4_2``.  On a
+        card with native float64, ``jax_enable_x64`` is the exact mode.
 
-        ``fast_compile``: first-contact escape hatch for the cold-start
-        compile tax.  Forces the pure-lax block-parallel solver with
-        plain autodiff — NO Pallas/Mosaic kernels anywhere in the
-        program, so the one-time compile is seconds instead of minutes
-        (the Mosaic kernel compiles re-run inside every distinct outer
-        jit program; a sampler's warmup+sampling programs each pay
-        them).  Measured on the v5e chip at N=1e5 (benchmarks/
-        fastcompile_cold.py): cold compile + first value+grad eval
-        76 s from an empty cache (vs 4-6 min for the fused path),
-        then 50.3 ms per value+grad vs ~2.5 ms fused — the hatch
-        trades ~20x the gradient eval cost for a minutes-smaller
-        first-contact wall.  Primal-only evals are comparable
-        (3.4 vs 4.2 ms).  Use it for interactive fit/optimize/predict;
-        do NOT compose it into monolithic sampler segments at large N:
-        the blocked-AD program inlined in NUTS tree while_loops
-        crashes the TPU worker at N=1e5 (same failure class as the
-        monolithic SMC while_loop; warm the kernel cache for MCMC
-        instead).  Ignored when ``precision='ds'`` takes the lax path
-        anyway.
+        ``fast_compile``: force the block-parallel solver with plain
+        autodiff, whatever ``solver`` and ``fast_grad`` say.  Ignored
+        when ``precision='ds'`` takes the lax path anyway.
         """
         if fast_compile:
             solver = "blocked"
@@ -375,153 +356,17 @@ class GP(ModelSet):
                 "precision must be None or 'ds', got {0!r}".format(precision)
             )
         if precision == "ds":
-            from .ops import dsa as _dsa
-            from .ops import dsblocked as _dsb
-            from .ops import dslower as _dsl
-
-            # Static ds time grid: exact f64 splits of t and the
-            # spacings (dt[0] == 0), computed host-side once.
-            t_ds = _dsa.from_f64(t_np)
-            dt_ds = _dsa.from_f64(
-                np.concatenate([[0.0], np.diff(t_np)])
+            return self._build_loglik_ds(
+                t_np, y, diag, block_size, fixed, idx, nk, mean_fn
             )
-            # General (A, U, V) blocks are static data: exact f64 ds
-            # splits, lowered as phi=1 lanes with zero tangents
-            # (cholesky.h:148-152 takes them in-loop in f64; this is
-            # the ds-mode equivalent).
-            _has_gen = self._A is not None and np.size(self._A) > 0
-            gen_kw = {}
-            if _has_gen:
-                gen_kw = dict(
-                    A_gen=_dsa.from_f64(
-                        np.asarray(self._A, np.float64)
-                    ),
-                    U_gen=_dsa.from_f64(
-                        np.asarray(self._U, np.float64)
-                    ),
-                    V_gen=_dsa.from_f64(
-                        np.asarray(self._V, np.float64)
-                    ),
-                )
-            diag32 = jnp.asarray(diag, jnp.float32)
-            y32 = jnp.asarray(y, jnp.float32)
-            T_dim = int(mask.sum())
 
-            # Kernel-fast exact mode (ops/dsfused): the same dual-ds
-            # forward-mode arithmetic INSIDE the fused Pallas kernel
-            # family — single sweep, no saves, chain-folded batching.
-            # Routes here on TPU for the common sampler case; general
-            # blocks / active mean parameters / wide models use the lax
-            # dsblocked path below (correct, slower).
-            _pr0, _pc0 = kernel.padded_size
-            _width_ds = _pr0 + 2 * _pc0
-            _mean_active0 = len(idx) > 0 and int(idx.max()) >= nk
-            _use_dsfused = (
-                jax.default_backend() == "tpu"
-                and not _has_gen
-                and not _mean_active0
-                and 0 < _width_ds <= 8
-                and t.shape[0] >= 2048
-                and block_size is None
-                and not fast_compile
-                and not os.environ.get("CELERITE_TPU_DS_LAX")
-            )
-            if _use_dsfused:
-                return self._build_loglik_dsfused(
-                    t_np, y, diag, kernel, fixed, idx, nk, mean_fn,
-                    _pr0, _pc0,
-                )
-
-            def _cf(theta):
-                full = fixed.at[idx].set(theta) if len(idx) else fixed
-                kp = full[:nk]
-                coeffs = Coefficients(
-                    *kernel.get_padded_coefficients(kp),
-                    jitter=kernel.get_jitter(kp),
-                )
-                return Coefficients(
-                    *[c.astype(jnp.float32) for c in coeffs]
-                )
-
-            def _resid(theta):
-                full = fixed.at[idx].set(theta) if len(idx) else fixed
-                mp = full[nk:]
-                return y32 - mean_fn(mp, t_ds.hi).astype(jnp.float32)
-
-            def _value_ok_grad_ds(theta):
-                """One-pass (ll, ok, grad): dual-ds forward mode — the
-                tangent recursions run in ds arithmetic alongside the
-                value, so the gradient holds the same ds-class accuracy
-                (plain AD's f32 cotangent chains lose ~3 decades to the
-                solver's cancelling reductions)."""
-                coeffs = _cf(theta)
-                jac_c = jax.jacfwd(_cf)(theta)
-                tangents = [
-                    jax.tree_util.tree_map(
-                        lambda l: l[..., j], jac_c
-                    )
-                    for j in range(T_dim)
-                ]
-                ssm_dual = _dsl.lower_ds(
-                    coeffs, t_ds, dt_ds, diag32,
-                    coeff_tangents=tangents, **gen_kw,
-                )
-                resid = _resid(theta)
-                _mean_active = len(idx) > 0 and int(idx.max()) >= nk
-                if _mean_active:
-                    jr = jax.jacfwd(_resid)(theta)  # (n, T)
-                    resid = _dsa.dd_seed(
-                        _dsa.from_f32(resid),
-                        (_dsa.from_f32(jr[:, j])
-                         for j in range(T_dim)),
-                    )
-                return _dsb.gp_log_likelihood_grad(
-                    ssm_dual, resid, block_size=block_size
-                )
-
-            @jax.custom_vjp
-            def loglik_ds(theta):
-                ssm_ds = _dsl.lower_ds(
-                    _cf(theta), t_ds, dt_ds, diag32, **gen_kw
-                )
-                return _dsb.gp_log_likelihood(
-                    ssm_ds, _resid(theta), block_size=block_size
-                )
-
-            def _ds_fwd(theta):
-                ll, ok, grad = _value_ok_grad_ds(theta)
-                return (ll, ok), grad
-
-            def _ds_bwd(grad, g):
-                g_ll, _ = g
-                return (g_ll * grad,)
-
-            loglik_ds.defvjp(_ds_fwd, _ds_bwd)
-            loglik_ds.value_ok_grad = _value_ok_grad_ds
-            return loglik_ds
-
+        has_general = self._A is not None and np.size(self._A) > 0
+        _pr, _pc = kernel.padded_size
+        width = _pr + 2 * _pc
         if solver == "auto":
-            _no_general = self._A is None or np.size(self._A) == 0
-            _pr0, _pc0 = kernel.padded_size
-            _width = _pr0 + 2 * _pc0
-            if t.shape[0] < 4096:
-                solver = "seq"
-            elif (
-                jax.default_backend() == "tpu"
-                and _no_general
-                and _width <= 16
-            ):
-                # Lane-layout fused kernel: the fast + ds-accurate path.
-                # Wide models (P > 16) route to the block-parallel lax
-                # solver instead: the Pallas pipelines' unrolled (P, P)
-                # algebra pushes Mosaic compiles past 20 minutes there,
-                # while the blocked solver's cross-block composes become
-                # real (P, P) matmuls — MXU territory — measured 5x the
-                # sequential scan at P = 32-64, N = 16384 on v5e
-                # (benchmarks/results/tpu_v5e_wide.csv).
-                solver = "fused"
-            else:
-                solver = "blocked"
+            from .ops import choose_solver
+
+            solver = choose_solver(int(t.shape[0]), width, has_general)
         if solver == "seq":
             ll_fn = seq.gp_log_likelihood
         elif solver == "blocked":
@@ -530,423 +375,26 @@ class GP(ModelSet):
             ll_fn = lambda ssm, r: blocked.gp_log_likelihood(
                 ssm, r, block_size=block_size
             )
-        elif solver == "pallas":
-            from .ops import pallas_solver
-
-            ll_fn = lambda ssm, r: pallas_solver.gp_log_likelihood(
-                ssm, r, block_size=block_size or 256
-            )
-        elif solver == "fused":
+        elif solver in ("fused", "pallas"):
             from .ops import fused
 
+            fused.require_gpu()
+            if has_general or not fused.supports_width(width):
+                raise ValueError(
+                    "solver='fused' supports models of semiseparable rank "
+                    "1..{0} without general blocks; use 'blocked'".format(
+                        fused.MAX_WIDTH
+                    )
+                )
             ll_fn = lambda ssm, r: fused.gp_log_likelihood(
-                ssm, r, num_blocks=block_size
+                ssm, r, block_size
             )
         else:
             raise ValueError("unknown solver '{0}'".format(solver))
 
-        has_general = self._A is not None and np.size(self._A) > 0
         A_gen = jnp.asarray(self._A) if has_general else None
         U_gen = jnp.asarray(self._U) if has_general else None
         V_gen = jnp.asarray(self._V) if has_general else None
-
-        # Lane-layout hot path: for the fused solver without general
-        # blocks, precompute the static (L, P, B) grid once so every
-        # evaluation is pure elementwise lowering + the kernel — no
-        # per-eval transposes (ops/lanes.py).
-        _pr, _pc = kernel.padded_size
-        use_lanes = (
-            solver == "fused"
-            and not has_general
-            and (_pr + 2 * _pc) > 0
-        )
-        # Full-tile path (ops/fused4.py): in-kernel lowering + flat
-        # cross-block prefixes; primal and reverse-mode gradient in a
-        # handful of ms at N=1e6.  Models up to padded width 12 (e.g.
-        # three SHO terms; needs the raised Mosaic VMEM limit and a
-        # minutes-scale one-time compile at P > 8 — measured 5.6 ms
-        # primal / 13.3 ms value+grad at N=1e6, P=12 vs ~32 ms through
-        # the 3-D pipeline).  P = 16 compiles are impractically slow
-        # (>20 min); wider models use the 3-D pipeline below.
-        if use_lanes and (_pr + 2 * _pc) <= 12 and fast_grad != "tangent":
-            from .ops import fused4 as _f4
-            from .ops import lanes4 as _lanes4
-
-            n_pts = int(t.shape[0])
-            _p4 = _pr + 2 * _pc
-            nb4 = block_size or _lanes4.default_num_blocks4(n_pts, _p4)
-            if jax.default_backend() == "tpu":
-                # The (8, W) minor dims need W >= 128 for full-width
-                # vector tiles on real hardware (half-width tiles
-                # measured ~6x slower); interpret mode has no such
-                # constraint, so tests may use tiny lane counts.
-                nb4 = max(nb4, 1024)
-            plan4 = _lanes4.make_plan4(
-                t_np, np.asarray(y, np.float64),
-                np.asarray(diag, np.float64), nb4,
-                dtype=np.dtype(t.dtype),
-            )
-            on_tpu = jax.default_backend() == "tpu"
-            interp4 = not on_tpu
-            _ll_prim = _f4.build_ll(plan4, _pr, _pc, interpret=interp4)
-            _ll_grad = _f4.build_ll_and_grad(
-                plan4, _pr, _pc, interpret=interp4
-            )
-
-            def _cf_y(theta):
-                full = fixed.at[idx].set(theta) if len(idx) else fixed
-                kp, mp = full[:nk], full[nk:]
-                coeffs = Coefficients(
-                    *kernel.get_padded_coefficients(kp),
-                    jitter=kernel.get_jitter(kp),
-                )
-                cf = _lanes4.pack_cf(coeffs, dtype=plan4.t.dtype)
-                y4 = plan4.y - mean_fn(mp, plan4.t) * plan4.mask
-                return cf, y4
-
-            @jax.custom_vjp
-            def loglik_lanes4(theta):
-                cf, y4 = _cf_y(theta)
-                return _ll_prim(cf, y4)
-
-            def _l4fwd(theta):
-                return loglik_lanes4(theta), theta
-
-            def _l4bwd(theta, g):
-                g_ll, _ = g
-                if on_tpu:
-                    def ll_only(th):
-                        cf, y4 = _cf_y(th)
-                        return _ll_grad(cf, y4)[0]
-                else:
-                    from .ops import blocked as _blocked
-
-                    def ll_only(th):
-                        full = fixed.at[idx].set(th) if len(idx) else fixed
-                        kp, mp = full[:nk], full[nk:]
-                        coeffs = Coefficients(
-                            *kernel.get_padded_coefficients(kp),
-                            jitter=kernel.get_jitter(kp),
-                        )
-                        resid = y - mean_fn(mp, t)
-                        ssm = lower(coeffs, t, diag, **lower_kw)
-                        return _blocked.gp_log_likelihood(ssm, resid)[0]
-
-                _, vjp = jax.vjp(ll_only, theta)
-                return (vjp(g_ll)[0],)
-
-            loglik_lanes4.defvjp(_l4fwd, _l4bwd)
-
-            def _value_ok_grad4(theta):
-                """One-pass (ll, ok, grad) through the split adjoint
-                pipeline (saves forward + reversed-stream backward);
-                samplers consume this via ``value_and_grad``."""
-                if not on_tpu:
-                    (ll, ok), grad = jax.value_and_grad(
-                        loglik_lanes4, has_aux=True
-                    )(theta)
-                    return ll, ok, grad
-
-                def f(th):
-                    cf, y4 = _cf_y(th)
-                    return _ll_grad(cf, y4)
-
-                (ll, ok), grad = jax.value_and_grad(
-                    f, has_aux=True
-                )(theta)
-                return ll, ok, grad
-
-            # Chain-folding: under jax.vmap (sampler chains), fold the
-            # batch axis onto the kernel's virtual-lane axis instead of
-            # serializing pallas launches — one kernel evaluates every
-            # chain.  Active mean parameters fold too: each chain's
-            # residual is laid out as its own lane stream at trace time
-            # (lanes4.fold_lanes) and the kernels differentiate w.r.t.
-            # the data stream, so mean-parameter gradients flow through
-            # the folded launch like everything else.
-            # Off-TPU the folded kernels would run in interpret mode
-            # (slow), so folding is TPU-only; CELERITE_TPU_FORCE_FOLD=1
-            # opts in anyway so the fold/chunk logic is testable on CPU.
-            _foldable = on_tpu or bool(
-                os.environ.get("CELERITE_TPU_FORCE_FOLD")
-            )
-            _mean_active = len(idx) > 0 and int(idx.max()) >= nk
-            _mp_fixed = fixed[nk:]
-            # Host-side residual for the folded plans, computed OUTSIDE
-            # any trace: the rule below runs at trace time, and caching
-            # a traced array there would leak a tracer into another
-            # trace's jaxpr constants.  With active mean parameters the
-            # plan keeps the raw data; the (per-chain) mean comes off
-            # in-trace.
-            if _foldable:
-                _y4_np = np.asarray(y, np.float64)
-                if not _mean_active:
-                    _y4_np = _y4_np - np.asarray(
-                        mean_fn(_mp_fixed, t), np.float64
-                    )
-            _folded_cache = {}
-
-            def _cf_of_kernel(th):
-                full = fixed.at[idx].set(th) if len(idx) else fixed
-                kp = full[:nk]
-                coeffs = Coefficients(
-                    *kernel.get_padded_coefficients(kp),
-                    jitter=kernel.get_jitter(kp),
-                )
-                return _lanes4.pack_cf(coeffs, dtype=plan4.t.dtype)
-
-            _diag_np = np.asarray(diag, np.float64)
-
-            def _get_folded(nc):
-                if nc not in _folded_cache:
-                    # Lane budget measured on v5e: wider than 2048 total
-                    # lanes hurts at P=8 (save-stream VMEM pressure);
-                    # wide P <= 12 models cap at 1024 like the unbatched
-                    # path.
-                    if _p4 <= 4:
-                        cap = 4096
-                    elif _p4 <= 8:
-                        cap = 2048
-                    else:
-                        cap = 1024
-                    bc = max(8, cap // nc)
-                    while bc > 8 and bc > 2 * n_pts:
-                        bc //= 2
-                    # First call happens inside the batching rule,
-                    # i.e. at trace time: build the plan's device
-                    # constants outside the ambient trace or the cache
-                    # would hold leaked tracers.
-                    with jax.ensure_compile_time_eval():
-                        planb = _lanes4.make_plan4(
-                            t_np, _y4_np, _diag_np, bc,
-                            dtype=np.dtype(t.dtype), n_chain=nc,
-                        )
-                    fnb = _f4.build_ll_and_grad(
-                        planb, _pr, _pc, n_chain=nc, interpret=interp4
-                    )
-                    _folded_cache[nc] = (planb, fnb)
-                return _folded_cache[nc]
-
-            # Folded plans tile the data stream once per chain, so the
-            # program constants grow as n_chain * N floats; past ~2^23
-            # the baked-in constants blow the compile-request size (and
-            # waste HBM).  Above the cap, fold in chunks.
-            # CELERITE_TPU_FOLD_CAP overrides (tests exercise the chunk
-            # path on small problems through it).
-            _cap_env = os.environ.get("CELERITE_TPU_FOLD_CAP")
-            if _cap_env:
-                _fold_cap = max(1, int(_cap_env))
-            else:
-                _fold_cap = max(
-                    1, 1 << max(0, 22 - max(n_pts - 1, 1).bit_length())
-                )
-
-            def _batched_vog(thetas):
-                """Chain-folded (ll, ok, grad) for a (n, dim) batch —
-                the batching rule of the value_ok_grad primitive; one
-                kernel launch evaluates every chain (chunked at
-                _fold_cap chains per launch for very large N)."""
-                axis_size = thetas.shape[0]
-                if not _foldable or axis_size == 1:
-                    return jax.lax.map(_value_ok_grad4, thetas)
-                nc = 1 << max(0, int(axis_size) - 1).bit_length()
-                if nc > _fold_cap:
-                    nch = _fold_cap
-                    pad = (-axis_size) % nch
-                    th = (
-                        jnp.concatenate(
-                            [thetas, jnp.broadcast_to(
-                                thetas[:1], (pad,) + thetas.shape[1:]
-                            )]
-                        ) if pad else thetas
-                    )
-                    th = th.reshape(-1, nch, th.shape[-1])
-                    ll, ok, gr = jax.lax.map(_batched_vog, th)
-                    return (
-                        ll.reshape(-1)[:axis_size],
-                        ok.reshape(-1)[:axis_size],
-                        gr.reshape(-1, gr.shape[-1])[:axis_size],
-                    )
-                padn = nc - axis_size
-                th = (
-                    jnp.concatenate(
-                        [thetas,
-                         jnp.broadcast_to(
-                             thetas[:1], (padn,) + thetas.shape[1:]
-                         )]
-                    )
-                    if padn
-                    else thetas
-                )
-                planb, fnb = _get_folded(nc)
-
-                def f(th):
-                    cfs = jax.vmap(_cf_of_kernel)(th)
-                    if _mean_active:
-                        def mean_of(th_c):
-                            full = fixed.at[idx].set(th_c)
-                            return mean_fn(full[nk:], t)
-
-                        mvals = jax.vmap(mean_of)(th)  # (nc, n)
-                        y4 = planb.y - planb.mask * _lanes4.fold_lanes(
-                            mvals, planb.num_blocks // nc,
-                            planb.t.shape[0], dtype=planb.t.dtype,
-                        )
-                    else:
-                        y4 = planb.y
-                    ll, ok = fnb(cfs, y4)
-                    return jnp.sum(ll), (ll, ok)
-
-                (_, (ll, ok)), grads = jax.value_and_grad(
-                    f, has_aux=True
-                )(th)
-                return ll[:axis_size], ok[:axis_size], grads[:axis_size]
-
-            from .ops.vog_prim import make_vog
-
-            loglik_lanes4.value_ok_grad = make_vog(
-                _value_ok_grad4, _batched_vog, int(mask.sum()), t.dtype
-            )
-            return loglik_lanes4
-
-        if use_lanes:
-            from .ops import fused as _fused
-            from .ops import lanes as _lanes
-
-            n_pts = int(t.shape[0])
-            if block_size is not None:
-                nb = block_size
-            elif fast_grad == "tangent":
-                # The tangent-augmented kernel carries T extra state
-                # copies in VMEM; both kernels share the plan's layout.
-                from .ops import tangent as _tan
-
-                nb = _tan.default_jac_blocks(
-                    n_pts, _pr + 2 * _pc, max(int(mask.sum()), 1)
-                )
-            elif fast_grad:
-                from .ops import adjoint as _adj
-
-                _p = _pr + 2 * _pc
-                nb = _adj.default_adjoint_blocks(n_pts, _p)
-                if _p <= 8:
-                    # The plan is shared with the fused primal kernel,
-                    # whose in-VMEM scans cap the lane count.
-                    nb = min(nb, _fused.default_num_blocks(n_pts, _p))
-            else:
-                nb = _fused.default_num_blocks(n_pts, _pr + 2 * _pc)
-            plan = _lanes.make_plan(
-                t_np, np.asarray(y, np.float64),
-                np.asarray(diag, np.float64), nb,
-                dtype=np.dtype(t.dtype),
-            )
-            on_tpu = jax.default_backend() == "tpu"
-
-            def make_lane_inputs(theta):
-                full = fixed.at[idx].set(theta) if len(idx) else fixed
-                kp, mp = full[:nk], full[nk:]
-                coeffs = Coefficients(
-                    *kernel.get_padded_coefficients(kp),
-                    jitter=kernel.get_jitter(kp),
-                )
-                u, v, ph, a = _lanes.lower_lanes(coeffs, plan)
-                yl = plan.y - mean_fn(mp, plan.t) * plan.mask
-                return u, v, ph, a, yl
-
-            def lanes_primal(theta):
-                u, v, ph, a, yl = make_lane_inputs(theta)
-                return _fused.run_kernel(
-                    u, v, ph, a, yl, plan.n, interpret=not on_tpu
-                )
-
-            @jax.custom_vjp
-            def loglik_lanes(theta):
-                return lanes_primal(theta)
-
-            def _lfwd(theta):
-                return lanes_primal(theta), theta
-
-            def _lbwd(theta, g):
-                g_ll, _ = g
-                if fast_grad and on_tpu:
-                    if fast_grad == "tangent":
-                        _, _, dll = _lanes.gp_log_likelihood_jac(
-                            make_lane_inputs, theta, plan.n
-                        )
-                        return (g_ll * dll,)
-                    from .ops import adjoint as _adj
-
-                    _, _, dll = _adj.value_and_grad_fn(
-                        make_lane_inputs, plan.n
-                    )(theta)
-                    return (g_ll * dll,)
-
-                from .ops import blocked as _blocked
-
-                def ll_only(th):
-                    full = fixed.at[idx].set(th) if len(idx) else fixed
-                    kp, mp = full[:nk], full[nk:]
-                    coeffs = Coefficients(
-                        *kernel.get_padded_coefficients(kp),
-                        jitter=kernel.get_jitter(kp),
-                    )
-                    resid = y - mean_fn(mp, t)
-                    ssm = lower(coeffs, t, diag, **lower_kw)
-                    return _blocked.gp_log_likelihood(ssm, resid)[0]
-
-                _, vjp = jax.vjp(ll_only, theta)
-                return (vjp(g_ll)[0],)
-
-            loglik_lanes.defvjp(_lfwd, _lbwd)
-
-            def _value_ok_grad(theta):
-                """One-pass (ll, ok, grad) — the adjoint (reverse-mode)
-                kernel pair by default (cost independent of parameter
-                count), or the tangent-augmented forward-mode kernel
-                with ``fast_grad="tangent"``.  Samplers consume this via
-                the ``value_and_grad`` attribute."""
-                if on_tpu and fast_grad == "tangent":
-                    return _lanes.gp_log_likelihood_jac(
-                        make_lane_inputs, theta, plan.n
-                    )
-                if on_tpu:
-                    from .ops import adjoint as _adj
-
-                    return _adj.value_and_grad_fn(
-                        make_lane_inputs, plan.n
-                    )(theta)
-                (ll, ok), grad = jax.value_and_grad(
-                    loglik_lanes, has_aux=True
-                )(theta)
-                return ll, ok, grad
-
-            loglik_lanes.value_ok_grad = _value_ok_grad
-            return loglik_lanes
-
-        def loglik(theta):
-            full = fixed.at[idx].set(theta) if len(idx) else fixed
-            kp, mp = full[:nk], full[nk:]
-            coeffs = Coefficients(
-                *kernel.get_padded_coefficients(kp),
-                jitter=kernel.get_jitter(kp),
-            )
-            resid = y - mean_fn(mp, t)
-            ssm = lower(
-                coeffs, t, diag, A_gen=A_gen, U_gen=U_gen, V_gen=V_gen,
-                **lower_kw
-            )
-            return ll_fn(ssm, resid)
-
-        if not fast_grad:
-            return loglik
-
-        # Forward-mode gradient: jvp through the lax blocked solver per
-        # parameter, attached as the custom VJP of the fused primal: all
-        # tangent recursions ride inside one tangent-augmented kernel, so
-        # the gradient costs ~2-3 primal passes *total*, not per parameter
-        # (ops/tangent.py; same insight as the reference's forward-mode
-        # coefficient AD, solver.cpp:347).
-        from .ops import tangent as _tangent
 
         def make_inputs(theta):
             full = fixed.at[idx].set(theta) if len(idx) else fixed
@@ -962,191 +410,124 @@ class GP(ModelSet):
             )
             return ssm, resid
 
-        on_tpu = jax.default_backend() == "tpu"
+        def loglik(theta):
+            return ll_fn(*make_inputs(theta))
 
-        @jax.custom_vjp
-        def loglik_fast(theta):
-            return loglik(theta)
+        def blocked_ll(theta):
+            from .ops import blocked
 
-        def _fwd(theta):
-            return loglik(theta), theta
+            return blocked.gp_log_likelihood(*make_inputs(theta))
 
-        def _bwd_tpu(theta, g_ll):
-            if fast_grad == "tangent":
-                dim = theta.shape[0]
-                # The lowering is cheap elementwise math: linearize it
-                # once and push the T basis directions through (vmap of
-                # the linear part; the primal lowering runs once).
-                (ssm, resid), lin = jax.linearize(make_inputs, theta)
-                dssm, dresid = jax.vmap(lin)(
-                    jnp.eye(dim, dtype=theta.dtype)
-                )
-                _, _, dll = _tangent.gp_log_likelihood_jac(
-                    ssm, resid, dssm, dresid, num_blocks=block_size
-                )
-                return g_ll * dll
+        fused_route = solver in ("fused", "pallas")
+        if not (fused_route or fast_grad):
+            return loglik
 
-            from .ops import adjoint as _adjoint
+        if fused_route:
+            # The kernel's own custom VJP already differentiates through
+            # the blocked solver.
+            out = loglik
+        else:
 
-            def ll_only(th):
-                ssm, resid = make_inputs(th)
-                ll, _ = _adjoint.gp_log_likelihood(
-                    ssm, resid, num_blocks=block_size
-                )
-                return ll
+            @jax.custom_vjp
+            def out(theta):
+                return loglik(theta)
 
-            _, vjp = jax.vjp(ll_only, theta)
-            return vjp(g_ll)[0]
+            def _fwd(theta):
+                return loglik(theta), theta
 
-        def _bwd_cpu(theta, g_ll):
-            from .ops import blocked as _blocked
+            def _bwd(theta, g):
+                _, vjp = jax.vjp(lambda th: blocked_ll(th)[0], theta)
+                return (vjp(g[0])[0],)
 
-            def ll_only(th):
-                ssm, resid = make_inputs(th)
-                return _blocked.gp_log_likelihood(ssm, resid)[0]
+            out.defvjp(_fwd, _bwd)
 
-            _, vjp = jax.vjp(ll_only, theta)
-            return vjp(g_ll)[0]
+        def value_ok_grad(theta):
+            (ll, ok), grad = jax.value_and_grad(
+                blocked_ll, has_aux=True
+            )(theta)
+            return ll, ok, grad
 
-        def _bwd(theta, g):
-            g_ll, _ = g
-            grad = (_bwd_tpu if on_tpu else _bwd_cpu)(theta, g_ll)
-            return (grad,)
+        out.value_ok_grad = value_ok_grad
+        return out
 
-        loglik_fast.defvjp(_fwd, _bwd)
-        return loglik_fast
+    def _build_loglik_ds(self, t_np, y, diag, block_size, fixed, idx, nk,
+                         mean_fn):
+        """``build_loglik(precision="ds")``: the lax double-single path."""
+        from .ops import dsa as _dsa
+        from .ops import dsblocked as _dsb
+        from .ops import dslower as _dsl
 
-    def _build_loglik_dsfused(self, t_np, y, diag, kernel, fixed, idx,
-                              nk, mean_fn, pr, pc):
-        """Kernel-fast ``precision="ds"``: dual-ds fused Pallas pipeline.
+        kernel = self.kernel
+        # Static ds time grid: exact f64 splits of t and the
+        # spacings (dt[0] == 0), computed host-side once.
+        t_ds = _dsa.from_f64(t_np)
+        dt_ds = _dsa.from_f64(np.concatenate([[0.0], np.diff(t_np)]))
+        # General (A, U, V) blocks are static data: exact f64 ds
+        # splits, lowered as phi=1 lanes with zero tangents
+        # (cholesky.h:148-152 takes them in-loop in f64; this is
+        # the ds-mode equivalent).
+        gen_kw = {}
+        if self._A is not None and np.size(self._A) > 0:
+            gen_kw = dict(
+                A_gen=_dsa.from_f64(np.asarray(self._A, np.float64)),
+                U_gen=_dsa.from_f64(np.asarray(self._U, np.float64)),
+                V_gen=_dsa.from_f64(np.asarray(self._V, np.float64)),
+            )
+        diag32 = jnp.asarray(diag, jnp.float32)
+        y32 = jnp.asarray(y, jnp.float32)
+        T_dim = len(idx)
+        mean_active = len(idx) > 0 and int(idx.max()) >= nk
 
-        Returns the same ``theta -> (ll, ok)`` closure contract as the
-        lax ds path (custom VJP + ``value_ok_grad``), but the value AND
-        the forward-mode ds gradient run inside the single-sweep fused
-        kernels (ops/dsfused) with chain-folded batching (make_vog) —
-        the exact-mode equivalent of the f32 fused4 hot path.  The
-        reference gets this for free from hardware f64 + forward-mode
-        coefficient AD (cholesky.h:41-210, solver.cpp:347-463).
-        """
-        import jax as _jax
-
-        from .ops import dsfused as _dsf
-        from .ops import lanes4 as _lanes4
-        from .ops.vog_prim import make_vog
-
-        width = pr + 2 * pc
-        n_pts = int(t_np.shape[0])
-        C = _dsf.cf_len(pr, pc)
-        # Tangent directions stream in chunks of <= 4 per launch
-        # (dsfused default): Mosaic compile time is superlinear in the
-        # dual width, and the runtime seed planes let every chunk
-        # reuse one compiled kernel pair.
-        tan_chunk = None
-
-        # Static residual (no active mean parameters on this route).
-        _y_resid_np = np.asarray(y, np.float64) - np.asarray(
-            mean_fn(fixed[nk:], jnp.asarray(t_np)), np.float64
-        )
-        _diag_np = np.asarray(diag, np.float64)
-
-        nb = max(_lanes4.default_num_blocks4(n_pts, width), 1024)
-        # ds lane budget: the dual carries are 2(1+T)x the f32 ones.
-        nb = min(nb, 2048 if width <= 4 else 1024)
-        plan_ds = _dsf.make_plan_ds(t_np, _y_resid_np, _diag_np, nb)
-        _fn_grad = _dsf.build_ll_and_grad_ds(
-            plan_ds, pr, pc, tan_chunk=tan_chunk
-        )
-        _fn_primal = _dsf.build_ll_ds(plan_ds, pr, pc)
-
-        def _cf_pack(theta):
+        def _cf(theta):
             full = fixed.at[idx].set(theta) if len(idx) else fixed
             kp = full[:nk]
             coeffs = Coefficients(
                 *kernel.get_padded_coefficients(kp),
                 jitter=kernel.get_jitter(kp),
             )
-            return _dsf.pack_cf_ds(coeffs)
+            return Coefficients(*[c.astype(jnp.float32) for c in coeffs])
 
-        def _vog_single(theta):
-            cfv = _cf_pack(theta)
-            ll, ok, gcf = _fn_grad(cfv)
-            _, vjp = _jax.vjp(_cf_pack, theta)
-            g = vjp(gcf)[0].astype(theta.dtype)
-            return ll, ok, g
+        def _resid(theta):
+            full = fixed.at[idx].set(theta) if len(idx) else fixed
+            mp = full[nk:]
+            return y32 - mean_fn(mp, t_ds.hi).astype(jnp.float32)
 
-        # Chain folding for vmapped samplers: one launch per <= 32
-        # chains, lanes split across the chain segments.
-        _folded_cache = {}
-        _chunk_cap = 32
-
-        def _get_folded(nc):
-            if nc not in _folded_cache:
-                bc = max(8, (2048 if width <= 4 else 1024) // nc)
-                while bc > 8 and bc > 2 * n_pts:
-                    bc //= 2
-                with _jax.ensure_compile_time_eval():
-                    planb = _dsf.make_plan_ds(
-                        t_np, _y_resid_np, _diag_np, bc, n_chain=nc
-                    )
-                fnb = _dsf.build_ll_and_grad_ds(
-                    planb, pr, pc, n_chain=nc, tan_chunk=tan_chunk
-                )
-                _folded_cache[nc] = fnb
-            return _folded_cache[nc]
-
-        def _batched_vog(thetas):
-            axis_size = thetas.shape[0]
-            if axis_size == 1:
-                return _jax.lax.map(_vog_single, thetas)
-            nc = 1 << max(0, int(axis_size) - 1).bit_length()
-            if nc > _chunk_cap:
-                nch = _chunk_cap
-                pad = (-axis_size) % nch
-                th = (
-                    jnp.concatenate(
-                        [thetas, jnp.broadcast_to(
-                            thetas[:1], (pad,) + thetas.shape[1:]
-                        )]
-                    ) if pad else thetas
-                )
-                th = th.reshape(-1, nch, th.shape[-1])
-                ll, ok, gr = _jax.lax.map(_batched_vog, th)
-                return (
-                    ll.reshape(-1)[:axis_size],
-                    ok.reshape(-1)[:axis_size],
-                    gr.reshape(-1, gr.shape[-1])[:axis_size],
-                )
-            padn = nc - axis_size
-            th = (
-                jnp.concatenate(
-                    [thetas, jnp.broadcast_to(
-                        thetas[:1], (padn,) + thetas.shape[1:]
-                    )]
-                ) if padn else thetas
+        def _value_ok_grad_ds(theta):
+            """One-pass (ll, ok, grad): dual-ds forward mode — the
+            tangent recursions run in ds arithmetic alongside the
+            value, so the gradient holds the same ds-class accuracy
+            (plain AD's f32 cotangent chains lose ~3 decades to the
+            solver's cancelling reductions)."""
+            coeffs = _cf(theta)
+            jac_c = jax.jacfwd(_cf)(theta)
+            tangents = [
+                jax.tree_util.tree_map(lambda l: l[..., j], jac_c)
+                for j in range(T_dim)
+            ]
+            ssm_dual = _dsl.lower_ds(
+                coeffs, t_ds, dt_ds, diag32,
+                coeff_tangents=tangents, **gen_kw,
             )
-            fnb = _get_folded(nc)
-            cfs = _jax.vmap(_cf_pack)(th)
-            ll, ok, gcf = fnb(cfs)
-
-            def _one_bwd(th_c, g_c):
-                _, vjp = _jax.vjp(_cf_pack, th_c)
-                return vjp(g_c)[0].astype(th_c.dtype)
-
-            g = _jax.vmap(_one_bwd)(th, gcf)
-            return ll[:axis_size], ok[:axis_size], g[:axis_size]
-
-        dim = int(np.flatnonzero(np.asarray(self.unfrozen_mask)).size)
-        vog = make_vog(
-            _vog_single, _batched_vog, dim, jnp.float32,
-            name="celerite_ds_vog",
-        )
+            resid = _resid(theta)
+            if mean_active:
+                jr = jax.jacfwd(_resid)(theta)  # (n, T)
+                resid = _dsa.dd_seed(
+                    _dsa.from_f32(resid),
+                    (_dsa.from_f32(jr[:, j]) for j in range(T_dim)),
+                )
+            return _dsb.gp_log_likelihood_grad(
+                ssm_dual, resid, block_size=block_size
+            )
 
         @jax.custom_vjp
         def loglik_ds(theta):
-            return _fn_primal(_cf_pack(theta))
+            ssm_ds = _dsl.lower_ds(_cf(theta), t_ds, dt_ds, diag32, **gen_kw)
+            return _dsb.gp_log_likelihood(
+                ssm_ds, _resid(theta), block_size=block_size
+            )
 
         def _ds_fwd(theta):
-            ll, ok, grad = _vog_single(theta)
+            ll, ok, grad = _value_ok_grad_ds(theta)
             return (ll, ok), grad
 
         def _ds_bwd(grad, g):
@@ -1154,7 +535,7 @@ class GP(ModelSet):
             return (g_ll * grad,)
 
         loglik_ds.defvjp(_ds_fwd, _ds_bwd)
-        loglik_ds.value_ok_grad = vog
+        loglik_ds.value_ok_grad = _value_ok_grad_ds
         return loglik_ds
 
     def build_logprob(self, t, y, yerr=1.123e-12, log_prior=None,
@@ -1166,19 +547,16 @@ class GP(ModelSet):
         parameter bounds (the modeling protocol's log_prior semantics).
 
         ``fast_grad=None`` (default): when the log-likelihood closure
-        carries a fused value+gradient entry point (the fused4 kernel
-        path attaches one unconditionally), the returned closure gets a
-        ``value_and_grad`` attribute backed by it — on TPU this is the
-        hand-written adjoint kernel pipeline with chain-folded batching
-        (samplers pick it up automatically, ~10x faster per vmapped
-        leapfrog than AD through the primal).  Pass ``False`` to force
-        plain autodiff or ``"tangent"`` for the forward-mode kernels.
+        carries a one-pass value+gradient entry point (``value_ok_grad``:
+        the fused route's blocked-AD gradient, or the ds route's
+        forward-mode one), the returned closure gets a
+        ``value_and_grad`` attribute backed by it, which the samplers
+        pick up.  Pass ``False`` to force plain autodiff through the
+        closure.
 
         ``precision="ds"`` routes the likelihood (value AND gradient)
         through the double-single solver (``build_loglik`` precision
-        semantics): ~48-bit-significand accuracy on TPU (cost: see
-        docs/precision.md) — the opt-in for posteriors whose f32 gradient
-        noise produces divergences (see docs/precision.md).
+        semantics, docs/precision.md).
         """
         ll_fn = self.build_loglik(
             t, y, yerr=yerr, solver=solver, block_size=block_size,
@@ -1290,25 +668,17 @@ class GP(ModelSet):
                 jitter=jnp.asarray(self.kernel.jitter),
             )
             if _sm.realize(coeffs) is not None:
-                # Large merged grids on TPU use the two-level blocked
-                # Kalman/RTS engine: the sequential lax.scan pays ~1 us
-                # launch latency per step (seconds at 1e6); the blocked
-                # one runs short within-block scans over wide batches
-                # plus a log-depth cross-block composition
-                # (ops/pkalman.blocked_filter_smoother).
-                if (
-                    jax.default_backend() == "tpu"
-                    and len(self._t) + len(xs) >= 16384
-                ):
-                    from .ops import pkalman as _pk
+                # The two-level blocked Kalman/RTS engine (short
+                # within-block scans over wide batches plus a log-depth
+                # cross-block composition); on an H100 it beat the
+                # compiled sequential scan at every merged size measured,
+                # from 100 points up (PERF.md).  ops/smoother stays the
+                # reference.
+                from .ops import pkalman as _pk
 
-                    mu_sm, var = _pk.predict_var_parallel(
-                        coeffs, self._t, self._yerr**2, resid, xs
-                    )
-                else:
-                    mu_sm, var = _sm.predict_var(
-                        coeffs, self._t, self._yerr**2, resid, xs
-                    )
+                mu_sm, var = _pk.predict_var_parallel(
+                    coeffs, self._t, self._yerr**2, resid, xs
+                )
                 mu = self.mean.get_value(xs) + mu_sm
                 return mu, var
 

@@ -1,7 +1,7 @@
 """Inference engine: NUTS/HMC, window adaptation, ADVI, SMC.
 
 The reference delegates MCMC to scipy/emcee user-side
-(docs/tutorials/modeling.rst:227-246); this layer is the new TPU-native
+(docs/tutorials/modeling.rst:227-246); this layer is the new
 component demanded by BASELINE.json: gradient-based samplers over the pure
 (ll, ok) log-probability closures from GP.build_logprob, vmapped over chains
 per chip and sharded across the mesh (see celerite_tpu.parallel).

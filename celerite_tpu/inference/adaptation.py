@@ -160,7 +160,7 @@ def welford_cov_update(s: WelfordState, xs, axis_name=None):
         batch_sum = lax.psum(batch_sum, axis_name)
     batch_mean = batch_sum / n
     dev = xs - batch_mean
-    batch_m2 = dev.T @ dev
+    batch_m2 = jnp.matmul(dev.T, dev, precision="highest")
     if axis_name is not None:
         batch_m2 = lax.psum(batch_m2, axis_name)
     count = s.count + n

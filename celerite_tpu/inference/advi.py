@@ -43,12 +43,10 @@ def fit_advi(
     Gaussian is sum(log sigma) + const, so the reparameterized estimator is
     mean over eps of logprob(mu + sigma*eps) + sum(log_sigma).
 
-    When ``logprob_fn`` carries a fused ``value_and_grad`` attribute (a
-    GP.build_logprob closure backed by the hand-written gradient kernels),
-    the ELBO gradient is assembled in closed form from the batched
-    theta-space gradients — the num_mc draws ride the kernels'
-    chain-folded batching rule in ONE device launch instead of AD through
-    num_mc serialized Pallas calls:
+    When ``logprob_fn`` carries a one-pass ``value_and_grad`` attribute
+    (e.g. a GP.build_logprob closure on the fused route), the ELBO
+    gradient is assembled in closed form from the vmapped theta-space
+    gradients instead of AD through the vmapped closure:
     d/dmu = mean_i g_i,  d/dlog_sigma = mean_i (g_i * eps_i) * sigma + 1.
     """
     init_params = jnp.asarray(init_params)

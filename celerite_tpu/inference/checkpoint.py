@@ -1,7 +1,7 @@
 """Sampler-chain checkpoint / resume.
 
 The reference persists only the factorization via pickle
-(solver.cpp:36-58); the TPU build's long-running artifact is the sampler
+(solver.cpp:36-58); this build's long-running artifact is the sampler
 state: chain positions, adaptation state (step size, mass matrix), and RNG
 keys (SURVEY.md 5.4).  States are plain pytrees of arrays, stored as
 compressed ``.npz`` with a flattened key -> array mapping, so checkpoints

@@ -31,8 +31,8 @@ __all__ = ["NUTSInfo", "nuts_kernel", "sample_nuts",
 
 # Jitted warmup/sample segments keyed by (logprob_fn, static config).
 # ``sample_nuts`` rebuilds its segment closures on every call; without
-# this cache each call re-traces and re-compiles them (minutes-scale on
-# TPU for large-N kernels).  Keying on the *user's* logprob object means
+# this cache each call re-traces and re-compiles them (minutes-scale
+# for large-N kernels).  Keying on the *user's* logprob object means
 # repeated calls with the same held logprob (e.g. a ``build_logprob``
 # result) hit the jit cache; a logprob rebuilt per call still re-traces,
 # which is unavoidable (its closure constants differ).
@@ -75,14 +75,15 @@ def _trailing_zeros(n):
 def _velocity(inv_mass, p):
     """dq/dt = M^-1 p for a diagonal (vector) or dense (matrix) metric."""
     if inv_mass.ndim == 2:
-        return inv_mass @ p
+        return jnp.matmul(inv_mass, p, precision="highest")
     return inv_mass * p
 
 
 def _velocity_rows(inv_mass, P):
     """Velocity of a batch of momenta (rows of ``P``)."""
     if inv_mass.ndim == 2:
-        return P @ inv_mass  # symmetric, so right-multiply works
+        # symmetric, so right-multiply works
+        return jnp.matmul(P, inv_mass, precision="highest")
     return inv_mass[None, :] * P
 
 
@@ -175,8 +176,8 @@ def nuts_kernel(
         inv_mass = jnp.broadcast_to(inv_mass, (dim,))
 
     # A logprob_fn carrying a ``value_and_grad`` attribute supplies both
-    # in one pass (e.g. the tangent-augmented fused kernel of
-    # GP.build_logprob(fast_grad=True)); otherwise fall back to AD.
+    # in one pass (e.g. GP.build_logprob on the fused route); otherwise
+    # fall back to AD.
     vag = getattr(logprob_fn, "value_and_grad", None)
 
     def grad_fn(q):
@@ -509,10 +510,8 @@ def _build_segments(
 
     def vkernel(data, qs, keys, eps, im, depth=max_tree_depth):
         lp = lambda th: logprob_data_fn(data, th)
-        # Propagate the fused value+gradient entry point through the
-        # data-binding wrapper — it is how the hand-written gradient
-        # kernels (and their chain-folded batching rule) reach the
-        # leapfrog integrator.
+        # Propagate the one-pass value+gradient entry point through the
+        # data-binding wrapper to the leapfrog integrator.
         _vag = getattr(logprob_data_fn, "value_and_grad", None)
         if _vag is not None:
             lp.value_and_grad = lambda th: _vag(data, th)

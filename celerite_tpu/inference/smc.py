@@ -108,11 +108,9 @@ def sample_smc(
             lp = log_prior_fn(theta) + beta * log_like_fn(theta)
             return jnp.where(jnp.isfinite(lp), lp, -1e12)
 
-        # Propagate the fused value+gradient entry point through the
-        # tempering: the HMC mutation kernel picks it up, so the whole
-        # particle cloud's leapfrog gradients ride the chain-folded
-        # gradient kernels in one launch instead of AD through n
-        # serialized Pallas calls (the NUTS fast path, reused).
+        # Propagate the one-pass value+gradient entry point through the
+        # tempering: the HMC mutation kernel picks it up for the whole
+        # particle cloud's leapfrog gradients (the NUTS path, reused).
         if vag_like is not None:
             vag_prior = getattr(
                 log_prior_fn, "value_and_grad",

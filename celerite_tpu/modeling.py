@@ -10,7 +10,7 @@ parameters are addressed as ``"submodel:param"``.
 The implementation here is new: parameter storage is a plain ``dict`` of
 name -> float plus a set of frozen names (the reference stores attributes and
 a boolean numpy mask).  Gradient hooks (``compute_gradient``) are retained for
-API parity but the TPU build's differentiation goes through ``jax.grad`` of
+API parity but this build's differentiation goes through ``jax.grad`` of
 the pure log-likelihood instead.
 """
 

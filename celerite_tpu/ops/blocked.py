@@ -1,14 +1,16 @@
 """Two-level block-parallel semiseparable solver.
 
-This is the TPU-native reformulation of the reference's strictly sequential
+This is the accelerator reformulation of the reference's strictly sequential
 O(N) Cholesky recursion (cholesky.h:126-179): the time axis is split into B
 blocks of length L; each block runs the cheap sequential recursion locally
-(vmapped across blocks, so every step is a wide VPU op), and the tiny
+(vmapped across blocks, so every step is one wide vector op), and the tiny
 cross-block coupling — a P-dimensional state — is composed exactly with a
 ``jax.lax.associative_scan``.  Wall-clock drops from O(N) sequential steps
-to O(L) steps + O(log B) vectorized passes, with ~3x the FLOPs (all of which
-are nearly free on TPU; the sequential scan is latency-bound, not
-compute-bound).
+to O(L) steps + O(log B) vectorized passes, with ~3x the FLOPs (nearly
+free on an accelerator: the sequential scan is latency-bound, not
+compute-bound).  On a GPU each of the L steps still launches a few small
+kernels; ops/fused.py runs the same passes with the step loop inside
+Triton kernels.
 
 Mathematical basis.  Write the post-update state S-hat_n = S_n + D_n W_n
 W_n^T.  A single step of the factorization is exactly the Riccati-class map
@@ -80,8 +82,8 @@ def _kahan_add(s, c, x):
 
 
 def default_block_size(n):
-    """Pick L ~ sqrt-ish balance: enough blocks to fill the VPU, short
-    sequential depth.  Clamped to [16, 512]."""
+    """Pick L ~ sqrt-ish balance: enough blocks to give each step a
+    wide vector op, short sequential depth.  Clamped to [16, 256]."""
     if n <= 4096:
         return max(16, n // 16)
     return 256
@@ -124,9 +126,9 @@ def _small_inv(M):
 
     Gauss-Jordan without pivoting, fully vectorized over the batch.  The
     matrices here are I + C J products with O(1) pivots, far from the
-    pivoting-pathological regime, and LAPACK-style batched LU is very slow
-    on TPU (it lowers to sequential loops); this unrolled form is pure
-    VPU arithmetic.  The derivative is supplied analytically
+    pivoting-pathological regime, and LAPACK-style batched LU of tiny
+    matrices lowers to sequential loops; this unrolled form is pure
+    elementwise arithmetic.  The derivative is supplied analytically
     (d(M^-1) = -M^-1 dM M^-1) so AD never traces the elimination chain.
     """
     p = M.shape[-1]

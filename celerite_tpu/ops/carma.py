@@ -1,6 +1,6 @@
 """CARMA(p, q) models: Kalman log-likelihood + celerite conversion.
 
-TPU-native analog of the reference's complex-diagonalized CARMA solver
+JAX analog of the reference's complex-diagonalized CARMA solver
 (/root/reference/cpp/include/celerite/carma.h:15-286, following Kelly et
 al. 2014).  Two roles, as in the reference: a comparison baseline for the
 semiseparable solver, and the constructive proof that the celerite kernel
@@ -103,11 +103,6 @@ class CARMASolver:
     def log_likelihood(self, t, y, yerr, quiet=False):
         """Exact Gaussian log-likelihood via the Kalman filter (O(N p^2)).
 
-        On TPU backends the filter runs in split real/imaginary
-        arithmetic (:func:`_kalman_ll_real`): complex scans are not
-        supported by the TPU runtime, and the split form is pure real
-        elementwise/matvec work the VPU tiles natively.
-
         ``quiet=True`` returns ``(ll, ok)`` instead of raising on a
         negative predictive variance (the generic failure mode of the
         diagonalized-basis filter at large p, carma.h:185-186).
@@ -123,15 +118,7 @@ class CARMASolver:
         return float(ll)
 
     def _kalman(self, y, yvar, dt):
-        """Backend-routed jitted Kalman pass; returns (ll, ok)."""
-        if jax.default_backend() == "tpu":
-            return _kalman_ll_real(
-                jnp.asarray(self.b.real), jnp.asarray(self.b.imag),
-                jnp.asarray(self.V.real), jnp.asarray(self.V.imag),
-                jnp.asarray(self.arroots.real),
-                jnp.asarray(self.arroots.imag),
-                y, yvar, dt,
-            )
+        """Jitted complex-arithmetic Kalman pass; returns (ll, ok)."""
         return _kalman_ll(
             jnp.asarray(self.b),
             jnp.asarray(self.V),
@@ -244,81 +231,6 @@ def _kalman_ll(b, V, roots, y, yvar, dt):
         jnp.array(jnp.inf, dtype),
     )
     (x, P, acc, min_var), _ = lax.scan(step, init, (y, yvar, dt))
-    n = y.shape[0]
-    ll = -0.5 * (acc + n * jnp.log(2.0 * jnp.pi))
-    return ll, min_var > 0
-
-
-@jax.jit
-@f32_matmuls
-def _kalman_ll_real(br, bi, Vr, Vi, rr, ri, y, yvar, dt):
-    """The diagonalized Kalman filter in split real/imaginary arithmetic.
-
-    Identical math to :func:`_kalman_ll` with every complex quantity
-    carried as a (real, imag) pair: the state x, the Hermitian
-    covariance P (Pr symmetric, Pi antisymmetric), the observation
-    vector b, and the transition lam = exp(roots * dt).  TPU runtimes
-    do not execute complex scans, and the split form is plain real
-    elementwise + matvec work.
-    """
-    p = br.shape[0]
-    dtype = y.dtype
-    br = br.astype(dtype)
-    bi = bi.astype(dtype)
-    Vr = Vr.astype(dtype)
-    Vi = Vi.astype(dtype)
-    rr = rr.astype(dtype)
-    ri = ri.astype(dtype)
-
-    def step(carry, inp):
-        xr, xi, Pr, Pi, acc, min_var = carry
-        yn, vn, dtn = inp
-        # Predict: E = Re(b @ x); w = P @ conj(b);
-        # S = vn + Re(b @ w).
-        expectation = br @ xr - bi @ xi
-        wr = Pr @ br + Pi @ bi
-        wi = Pi @ br - Pr @ bi
-        variance = vn + br @ wr - bi @ wi
-        # Update: K = w / S; x += resid K; P -= S K conj(K)^T.
-        Kr = wr / variance
-        Ki = wi / variance
-        resid = yn - expectation
-        xr = xr + resid * Kr
-        xi = xi + resid * Ki
-        Pr = Pr - variance * (
-            jnp.outer(Kr, Kr) + jnp.outer(Ki, Ki)
-        )
-        Pi = Pi - variance * (
-            jnp.outer(Ki, Kr) - jnp.outer(Kr, Ki)
-        )
-        # Advance: lam = exp((rr + i ri) dt); x <- lam * x;
-        # P <- V + (lam_i conj(lam_j)) * (P - V).
-        e = jnp.exp(rr * dtn)
-        lr = e * jnp.cos(ri * dtn)
-        li = e * jnp.sin(ri * dtn)
-        xr, xi = lr * xr - li * xi, lr * xi + li * xr
-        # M_ij = lam_i conj(lam_j):
-        Mr = lr[:, None] * lr[None, :] + li[:, None] * li[None, :]
-        Mi = li[:, None] * lr[None, :] - lr[:, None] * li[None, :]
-        Dr = Pr - Vr
-        Di = Pi - Vi
-        Pr = Vr + Mr * Dr - Mi * Di
-        Pi = Vi + Mr * Di + Mi * Dr
-        acc = acc + resid * resid / variance + jnp.log(variance)
-        min_var = jnp.minimum(min_var, variance)
-        return (xr, xi, Pr, Pi, acc, min_var), None
-
-    init = (
-        jnp.zeros((p,), dtype),
-        jnp.zeros((p,), dtype),
-        Vr,
-        Vi,
-        jnp.zeros((), dtype),
-        jnp.array(jnp.inf, dtype),
-    )
-    (xr, xi, Pr, Pi, acc, min_var), _ = lax.scan(
-        step, init, (y, yvar, dt)
-    )
     n = y.shape[0]
     ll = -0.5 * (acc + n * jnp.log(2.0 * jnp.pi))
     return ll, min_var > 0

@@ -1,6 +1,6 @@
 """Dense O(N^3) oracle solver.
 
-TPU analog of the reference's ``DirectSolver``
+JAX analog of the reference's ``DirectSolver``
 (/root/reference/cpp/include/celerite/solver/direct.h) and of the dense numpy
 oracles used throughout the reference test-suite
 (/root/reference/tests/test_celerite.py:45-151).  Used only to validate the

@@ -120,12 +120,12 @@ def ds_cos_sin(r_hi, r_lo):
 
 @jax.custom_jvp
 def accurate_exp(x):
-    """f32 exp accurate to ~2-3 ulp (TPU's built-in is ~30 ulp).
+    """f32 exp accurate to ~2-3 ulp, whatever the hardware exp does.
 
-    Measured on v5e: jnp.exp carries ~1.9e-6 relative error — systematic
-    across the million decay factors phi = exp(-c dt), it amplifies to
-    ~8e-3 relative log-likelihood error at N=1e6 (benchmarks/
-    sweep_fused.py).  Standard exp construction: ds-exact reduction
+    A hardware exp with tens of ulp of *systematic* error, repeated
+    across the million decay factors phi = exp(-c dt), amplifies into a
+    percent-class log-likelihood error at N=1e6.  Standard exp
+    construction: ds-exact reduction
     x = (k + r) ln 2 with k integer, 2^k by exponent-field bitcast
     (exact), 2^r via an f32 Taylor series of exp(r ln 2), |r| <= 0.5.
 

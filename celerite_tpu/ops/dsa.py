@@ -1,9 +1,9 @@
 """Vectorized double-single (f32x2) arithmetic for the solver recursions.
 
-TPU has no float64 datapath; the reference runs its whole recursion in
-float64 on CPU (/root/reference/cpp/include/celerite/solver/cholesky.h:41-210,
-templated scalar ``T=double``).  This module provides the TPU-native
-equivalent of that precision: every number is an unevaluated sum
+The reference runs its whole recursion in float64 on CPU
+(/root/reference/cpp/include/celerite/solver/cholesky.h:41-210,
+templated scalar ``T=double``).  This module provides that precision
+from float32 hardware alone (devices without a fast float64 path): every number is an unevaluated sum
 ``x = hi + lo`` of two float32s (a "double-single"), giving an effective
 ~48-bit significand.  All operations are branch-free elementwise jnp
 expressions, so they vmap/scan/jit like plain arithmetic and AD traces

@@ -19,8 +19,8 @@ enough (the f32 lowering's per-point rounding incoherently perturbs the
 represented matrix), hence ds end-to-end.
 
 The reference bar is hardware float64
-(/root/reference/cpp/include/celerite/solver/cholesky.h:41-210); on TPU
-this double-single path is the native equivalent.  Gradients come from
+(/root/reference/cpp/include/celerite/solver/cholesky.h:41-210); this
+double-single path is its float32-hardware equivalent.  Gradients come from
 jax AD straight through the ds arithmetic (the compensation chains are
 bilinear, so AD is exact through them), with scan residual saves.
 """
@@ -293,7 +293,7 @@ def gp_log_likelihood_grad(ssm, resid, block_size=None):
 
     The reference computes this gradient in hardware f64 forward-mode
     (solver.cpp:347, grad templates of cholesky.h); this is the
-    TPU-native equivalent.
+    double-single equivalent.
     """
     total, min_d, n, dtype = _total_ds(ssm, resid, block_size)
     if not isinstance(total, DD):

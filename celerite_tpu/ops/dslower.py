@@ -16,12 +16,12 @@ With ``coeff_tangents`` the coefficient scalars become dual-ds numbers
 (:class:`dsa.DD`) and the streams carry T ds-accurate tangent
 components, feeding :func:`dsblocked.gp_log_likelihood_grad` — the
 forward-mode gradient whose tangent arithmetic itself runs in ds (the
-reference's f64 forward-mode coefficient AD, solver.cpp:347, done the
-TPU-native way).
+reference's f64 forward-mode coefficient AD, solver.cpp:347, done in
+double-single).
 
 The reference needs none of this: its lowering runs inside the f64
 factor loop (/root/reference/cpp/include/celerite/solver/cholesky.h:
-129-152).  This module is the TPU-native (f32-hardware) equivalent.
+129-152).  This module is the f32-hardware equivalent.
 """
 
 from __future__ import annotations

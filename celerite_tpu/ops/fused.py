@@ -1,31 +1,38 @@
-"""Single fused Pallas TPU kernel for the GP log-likelihood.
+"""Pallas (Triton) kernels for the GP log-likelihood on NVIDIA GPUs.
 
-Replaces the three-kernel pipeline of :mod:`ops.pallas_solver` with ONE
-``pallas_call`` that keeps every carried state in VMEM for the whole
-computation (reference hot path: cholesky.h:126-179 + 343-398, redesigned
-as a two-phase block-parallel program):
+The block-parallel solver of :mod:`ops.blocked` runs each block's
+recursion as a ``lax.scan``: every one of its L steps is a handful of
+(P, P) operations that XLA launches as separate small kernels, so at
+N = 1e6 the primal is bound by launch latency, not by the bytes it
+reads.  This module runs the same algebra with the time loop *inside*
+the kernel:
 
-- grid = (2, L): phase 0 streams the time axis once and accumulates each
-  block's Riccati (A, J, C) element (the stable trajectory formulation of
-  ops/blocked._block_elements); phase 1 streams it again running the
-  factorization + forward-substitution statistics.
-- The cross-block *prefix compositions* — the only sequential coupling
-  between blocks — run **inside the kernel** as Hillis-Steele scans along
-  the lane (block) axis at the two phase boundaries, so nothing round-trips
-  to HBM between passes.
-- Pass 3 of the old pipeline is gone: the forward substitution's dependence
-  on the incoming block state h_in is affine, z_n = z0_n - g_n . h_in, so
-  phase 1 accumulates the quadratic-form statistics
-  (q0 = sum z0^2/d, qv = sum z0 g / d, Qm = sum g g^T / d) and the exact
-  quadratic term is assembled per block at the end:
-  quad_b = q0_b - 2 qv_b . h_b + h_b^T Qm_b h_b.
+- The time axis is cut into ``B`` lanes of ``L`` consecutive steps and
+  laid out as (steps, lanes), so one step's loads across neighbouring
+  lanes are coalesced.  Each Triton program owns ``lanes`` lanes (one
+  per thread) and walks their L steps in a ``fori_loop``; the per-lane
+  Riccati state lives in registers as unrolled (P, P) entries.
+- Sweep 1 builds each lane's zero-seeded (A, J, C) element exactly as
+  ``blocked._block_elements`` does (the trajectory formulation).
+- The cross-lane prefix is plain ``lax.associative_scan`` with
+  ``blocked``'s composition, giving every lane its incoming state.
+- Sweep 2 runs the seeded factorization and accumulates the
+  log-determinant, the smallest pivot and the lane's affine solve map
+  (M, m) for h_n = M_n h_{n-1} + m_n.  A second associative scan gives
+  each lane its incoming solve state h_in.
+- Sweep 3 re-runs the seeded factorization (cheaper than storing D and
+  W) with the forward substitution from h_in and sums z^2 / d.  (The
+  closed form z_n = z0_n - g_n . h_in would save this sweep, but its
+  quadratic form q0 - 2 qv.h + h^T Qm h cancels catastrophically in
+  float32 when the state decays slowly across a lane.)
 
-Layout: time-major ``(L, P, B)`` with the block axis B on lanes (B a power
-of two, ideally >= 512).  HBM traffic is exactly two streams of the input
-arrays; outputs are three scalars.
+The lowering stays in XLA (:func:`ops.lower.lower`, one fusion with the
+layout change); the kernel reads (U, V, phi, A, y).  The gradient is
+reverse-mode AD through ``blocked.gp_log_likelihood`` (custom VJP).
 
-Exact same math as ops/blocked.gp_log_likelihood — agreement is tested in
-tests/test_fused.py (interpret mode on CPU, compiled on TPU).
+The kernels compile only for a GPU through Triton; ``interpret=True``
+runs them on the CPU for tests.  Agreement with ``ops.seq`` and the
+dense oracle is tested in tests/test_fused.py.
 """
 
 from __future__ import annotations
@@ -36,364 +43,312 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from . import blocked
 from .lower import SSM
+from .precision import f32_matmuls
 
-__all__ = ["gp_log_likelihood", "default_num_blocks"]
+__all__ = [
+    "gp_log_likelihood",
+    "default_steps",
+    "require_gpu",
+    "MAX_WIDTH",
+    "supports_width",
+]
 
-
-def default_num_blocks(n, p=None):
-    """Pick the lane-block count B (power of two).
-
-    More blocks = shorter sequential depth per phase but more VMEM and
-    longer in-kernel prefix scans.  Sweep-validated on v5e at N=1e6.
-
-    The in-kernel Hillis-Steele prefix scans' unrolled stack grows
-    ~log2(B) * P^2, so the cap is P-aware: B <= 4096 at P <= 4 (B=8192
-    exceeds scoped VMEM on v5e), B <= 2048 at P <= 8 (17.4 MB reported
-    at B=4096, P=8).  P > 8 dispatches to the split pipeline anyway.
-    """
-    cap = 4096 if (p is None or p <= 4) else 2048
-    b = 256
-    while b * 2 * 64 <= n and b < cap:
-        b *= 2
-    return b
+# Widest semiseparable rank P routed to the kernels.  On an H100 at
+# N = 1e6 they beat the blocked solver at P = 2, 4 and 8 (12x, 9.7x and
+# 6.8x); wider models are not measured and keep the blocked path.
+MAX_WIDTH = 8
 
 
-# -- lane-batched small-matrix helpers (all arrays (P, P, B), lanes last) ----
+def supports_width(p):
+    """True if the kernel handles a model of semiseparable rank ``p``."""
+    return 0 < p <= MAX_WIDTH
 
 
-def _mm(x, y):
-    """(P,P,B) lane-batched matmul: out[i,j,b] = sum_k x[i,k,b] y[k,j,b].
-
-    Slice-based indexing only — integer indexing on 3-D values lowers to
-    gathers that Mosaic does not support.
-    """
-    p = x.shape[-3]
-    acc = x[..., :, 0:1, :] * y[..., 0:1, :, :]
-    for k in range(1, p):
-        acc = acc + x[..., :, k:k + 1, :] * y[..., k:k + 1, :, :]
-    return acc
-
-
-def _tr(x):
-    """Transpose the two small dims of (P, P, B)."""
-    return jnp.swapaxes(x, 0, 1)
-
-
-def _inv(m):
-    """Unrolled Gauss-Jordan inverse of (P, P, B) along the small dims.
-
-    Same rationale as ops/blocked._small_inv: the matrices are
-    I + C J products with O(1) pivots; batched LU lowers pathologically
-    on TPU while this is pure VPU arithmetic.
-    """
-    p = m.shape[0]
-    b = m.shape[2]
-    eye = jnp.broadcast_to(
-        jnp.eye(p, dtype=m.dtype)[:, :, None], (p, p, b)
-    )
-    aug = jnp.concatenate([m, eye], axis=1)  # (P, 2P, B)
-    row_ids = lax.broadcasted_iota(jnp.int32, (p, 2 * p, b), 0)
-    for k in range(p):
-        row = aug[k:k + 1, :, :] / aug[k:k + 1, k:k + 1, :]
-        elim = aug - aug[:, k:k + 1, :] * row
-        aug = jnp.where(row_ids == k, row, elim)
-    return aug[:, p:, :]
-
-
-def _shift_lanes(x, ident):
-    """Shift one position along the lane axis; lane 0 becomes ``ident``."""
-    b = x.shape[-1]
-    rolled = jnp.concatenate([x[..., -1:], x[..., :-1]], axis=-1)
-    lane = lax.broadcasted_iota(jnp.int32, x.shape, x.ndim - 1)
-    return jnp.where(lane == 0, ident, rolled)
-
-
-def _rolled(x, s):
-    """Value at lane b comes from lane b - s (static s), circularly."""
-    return jnp.concatenate([x[..., -s:], x[..., :-s]], axis=-1)
-
-
-def _compose_elem(a1, j1, c1, a2, j2, c2, eye):
-    """Riccati (A, J, C) composition, e1 first (ops/blocked._compose_full)."""
-    e = _inv(eye + _mm(c1, j2))
-    j2e = _mm(j2, e)
-    a12 = _mm(a2, _mm(e, a1))
-    c12 = _mm(_mm(a2, e), _mm(c1, _tr(a2))) + c2
-    j12 = j1 + _mm(_tr(a1), _mm(j2e, a1))
-    return a12, j12, c12
-
-
-def _kernel(u_ref, v_ref, ph_ref, a_ref, y_ref,
-            quad_out, ld_out, mind_out,
-            Sh, Ac, Jc, Mc, mc, Qm, qv, q0, cq0, ld, cld, mind):
-    """Two-phase fused kernel body.  See module docstring."""
-    phase = pl.program_id(0)
-    i = pl.program_id(1)
-    L = pl.num_programs(1)
-    p = u_ref.shape[1]
-    b = u_ref.shape[2]
-    dtype = Sh.dtype
-    eye = jnp.broadcast_to(jnp.eye(p, dtype=dtype)[:, :, None], (p, p, b))
-
-    # ---- phase 0: per-block Riccati elements ------------------------------
-    @pl.when((phase == 0) & (i == 0))
-    def _():
-        Ac[:] = eye
-        Jc[:] = jnp.zeros_like(Jc)
-        Sh[:] = jnp.zeros_like(Sh)
-
-    @pl.when(phase == 0)
-    def _():
-        u = u_ref[0]
-        v = v_ref[0]
-        ph = ph_ref[0]
-        a = a_ref[0]
-
-        A_c = Ac[:]
-
-        # Zero-seeded factor recursion carries the element's C (stable).
-        S = ph[:, None, :] * Sh[:] * ph[None, :, :]
-        su = jnp.sum(S * u[None, :, :], axis=1)
-        d = a - jnp.sum(u * su, axis=0, keepdims=True)
-        w = (v - su) / d
-        Sh[:] = S + d[None, :, :] * w[:, None, :] * w[None, :, :]
-
-        # Closed-loop transition applied to A in rank-1 form; J as stable
-        # rank-1 information sums (ops/blocked._block_elements docstring).
-        # The transition simplifies exactly to (I - w u^T) Phi — the same
-        # map that propagates the forward-substitution state: with
-        # uG = Phi u (1 + u.su/d) = (a/d) Phi u, the v-correction column
-        # becomes v (uAc/d) and Phi Ac + (su - v)(uAc/d)^T = Phi Ac
-        # - w uAc^T since w = (v - su)/d.
-        uAc = jnp.sum(A_c * (ph * u)[:, None, :], axis=0)
-        Ac[:] = ph[:, None, :] * A_c - w[:, None, :] * uAc[None, :, :]
-        Jc[:] = Jc[:] - uAc[:, None, :] * (uAc / d)[None, :, :]
-
-    # ---- phase boundary: cross-block prefix, seed phase 1 -----------------
-    @pl.when((phase == 1) & (i == 0))
-    def _():
-        # Inclusive Hillis-Steele scan of the (A, J, C) composition along
-        # the lane/block axis, then exclusive shift: block b's seed is the
-        # composition of blocks 0..b-1 applied to S-hat = 0, i.e. prefix C.
-        A_s, J_s, C_s = Ac[:], Jc[:], Sh[:]
-        s = 1
-        while s < b:
-            lane = lax.broadcasted_iota(jnp.int32, (p, p, b), 2)
-            a2, j2, c2 = A_s, J_s, C_s
-            a1, j1, c1 = _rolled(A_s, s), _rolled(J_s, s), _rolled(C_s, s)
-            ca, cj, cc = _compose_elem(a1, j1, c1, a2, j2, c2, eye)
-            keep = lane < s
-            A_s = jnp.where(keep, A_s, ca)
-            J_s = jnp.where(keep, J_s, cj)
-            C_s = jnp.where(keep, C_s, cc)
-            s *= 2
-        Sh[:] = _shift_lanes(C_s, jnp.zeros_like(C_s))
-
-        Mc[:] = eye
-        mc[:] = jnp.zeros_like(mc)
-        Qm[:] = jnp.zeros_like(Qm)
-        qv[:] = jnp.zeros_like(qv)
-        q0[:] = jnp.zeros_like(q0)
-        cq0[:] = jnp.zeros_like(cq0)
-        ld[:] = jnp.zeros_like(ld)
-        cld[:] = jnp.zeros_like(cld)
-        mind[:] = jnp.full_like(mind, jnp.inf)
-
-    # ---- phase 1: factor + affine solve map + quadratic-form stats --------
-    @pl.when(phase == 1)
-    def _():
-        u = u_ref[0]
-        v = v_ref[0]
-        ph = ph_ref[0]
-        a = a_ref[0]
-        y = y_ref[0]
-
-        S = ph[:, None, :] * Sh[:] * ph[None, :, :]
-        su = jnp.sum(S * u[None, :, :], axis=1)
-        d = a - jnp.sum(u * su, axis=0, keepdims=True)
-        w = (v - su) / d
-        Sh[:] = S + d[None, :, :] * w[:, None, :] * w[None, :, :]
-
-        # Affine solve map: h_n = M_n h_{n-1} + m_n with
-        # M_n = (I - w u^T) Phi; g_n = (Phi u)^T M_cum is the sensitivity
-        # of z_n to the block's incoming state.
-        PhM = ph[:, None, :] * Mc[:]
-        g = jnp.sum(u[:, None, :] * PhM, axis=0)  # (P, B)
-        Mc[:] = PhM - w[:, None, :] * g[None, :, :]
-        mh = ph * mc[:]
-        z0 = y - jnp.sum(u * mh, axis=0, keepdims=True)  # (1, B)
-        mc[:] = mh + w * z0
-
-        # Quadratic-form statistics (Kahan-compensated scalars; the
-        # (P,)-vector and (P,P)-matrix stats accumulate plainly — their
-        # contributions enter once per block, not once per step).
-        x1 = z0 * z0 / d - cq0[:]
-        t1 = q0[:] + x1
-        cq0[:] = (t1 - q0[:]) - x1
-        q0[:] = t1
-        x2 = jnp.log(d) - cld[:]
-        t2 = ld[:] + x2
-        cld[:] = (t2 - ld[:]) - x2
-        ld[:] = t2
-        qv[:] = qv[:] + (z0 / d) * g
-        Qm[:] = Qm[:] + g[:, None, :] * (g / d)[None, :, :]
-        mind[:] = jnp.minimum(mind[:], d)
-
-    # ---- final: affine prefix -> h_in, assemble block quads, reduce -------
-    @pl.when((phase == 1) & (i == L - 1))
-    def _():
-        M_s, m_s = Mc[:], mc[:]
-        s = 1
-        while s < b:
-            lane_m = lax.broadcasted_iota(jnp.int32, (p, p, b), 2)
-            lane_v = lax.broadcasted_iota(jnp.int32, (p, b), 1)
-            m1, v1 = _rolled(M_s, s), _rolled(m_s, s)
-            cm = _mm(M_s, m1)
-            cv = jnp.sum(M_s * v1[None, :, :], axis=1) + m_s
-            M_s = jnp.where(lane_m < s, M_s, cm)
-            m_s = jnp.where(lane_v < s, m_s, cv)
-            s *= 2
-        h = _shift_lanes(m_s, jnp.zeros_like(m_s))  # (P, B) exclusive
-
-        Qh = jnp.sum(Qm[:] * h[None, :, :], axis=1)  # (P, B)
-        quad_b = (
-            q0[:] + cq0[:]
-            - 2.0 * jnp.sum(qv[:] * h, axis=0, keepdims=True)
-            + jnp.sum(h * Qh, axis=0, keepdims=True)
+def require_gpu():
+    """Raise ValueError unless JAX's default backend is a GPU."""
+    backend = jax.default_backend()
+    if backend != "gpu":
+        raise ValueError(
+            "solver='fused' runs Triton kernels, which need a GPU; the "
+            "JAX backend is {0!r}.  Use solver='blocked' or "
+            "'auto'.".format(backend)
         )
-        quad_out[:] = jnp.sum(quad_b).reshape(1, 1)
-        ld_out[:] = jnp.sum(ld[:] + cld[:]).reshape(1, 1)
-        mind_out[:] = jnp.min(mind[:]).reshape(1, 1)
 
 
-def _to_lanes(ssm: SSM, resid, num_blocks):
-    """Pad to B * L and lay out time-major (L, P, B), lanes = blocks."""
-    n, p = ssm.U.shape
-    b = num_blocks
-    L = -(-n // b)
-    pad = b * L - n
-    U, V, phi, A = ssm.U, ssm.V, ssm.phi, ssm.A
-    if pad:
-        zU = jnp.zeros((pad, p), U.dtype)
-        U = jnp.concatenate([U, zU])
-        V = jnp.concatenate([V, zU])
-        phi = jnp.concatenate([phi, jnp.ones((pad, p), U.dtype)])
-        A = jnp.concatenate([A, jnp.ones((pad,), A.dtype)])
-        resid = jnp.concatenate([resid, jnp.zeros((pad,), resid.dtype)])
+def default_steps(n):
+    """Steps per lane L (a power of two, 16 to 64).
 
-    def tm(x):  # (B*L, p) -> (L, p, B)
-        return x.reshape(b, L, p).transpose(1, 2, 0)
-
-    def tm1(x):  # (B*L,) -> (L, 1, B)
-        return x.reshape(b, L).transpose(1, 0)[:, None, :]
-
-    return tm(U), tm(V), tm(phi), tm1(A), tm1(resid), L
-
-
-def run_kernel(u, v, ph, a, y, n, interpret=False):
-    """Invoke the fused kernel on pre-laned (L, P, B) inputs.
-
-    Returns (ll, ok).  ``n`` is the unpadded point count (for the 2 pi
-    normalization).  No AD rule — wrap via gp_log_likelihood or supply
-    your own (ops/lanes.py, ops/tangent.py).
-
-    Wide models (P > 8) route to the split two-kernel pipeline
-    (ops/adjoint.run_kernel): the in-kernel prefix scans below exceed
-    scoped VMEM at large P (their unrolled composition temporaries grow
-    ~P^2 per scan step).
+    Short lanes mean more lanes (fill the card) but a longer cross-lane
+    prefix.  On an H100 at N = 1e6, L = 64 was fastest at P = 2 and 4
+    (L = 32..256 swept; PERF.md).
     """
-    L, p, b = u.shape
-    dtype = u.dtype
+    steps = 16
+    while steps < 64 and steps * 16384 < n:
+        steps *= 2
+    return steps
 
-    if p > 8 and not interpret:
-        from . import pallas_solver
 
-        return pallas_solver.run_from_lanes(u, v, ph, a, y, n)
+def _pow2(x):
+    return 1 << max(0, int(x) - 1).bit_length()
 
-    step = pl.BlockSpec((1, p, b), lambda ph_, i: (i, 0, 0),
-                        memory_space=pltpu.VMEM)
-    step1 = pl.BlockSpec((1, 1, b), lambda ph_, i: (i, 0, 0),
-                         memory_space=pltpu.VMEM)
-    scal = pl.BlockSpec((1, 1), lambda ph_, i: (0, 0),
-                        memory_space=pltpu.VMEM)
 
-    quad, ld, mind = pl.pallas_call(
-        _kernel,
-        grid=(2, L),
-        in_specs=[step, step, step, step1, step1],
-        out_specs=[scal, scal, scal],
-        out_shape=[jax.ShapeDtypeStruct((1, 1), dtype)] * 3,
-        scratch_shapes=[
-            pltpu.VMEM((p, p, b), dtype),  # Sh
-            pltpu.VMEM((p, p, b), dtype),  # Ac
-            pltpu.VMEM((p, p, b), dtype),  # Jc
-            pltpu.VMEM((p, p, b), dtype),  # Mc
-            pltpu.VMEM((p, b), dtype),     # mc
-            pltpu.VMEM((p, p, b), dtype),  # Qm
-            pltpu.VMEM((p, b), dtype),     # qv
-            pltpu.VMEM((1, b), dtype),     # q0
-            pltpu.VMEM((1, b), dtype),     # cq0
-            pltpu.VMEM((1, b), dtype),     # ld
-            pltpu.VMEM((1, b), dtype),     # cld
-            pltpu.VMEM((1, b), dtype),     # mind
-        ],
+# -- per-step algebra on unrolled (lanes,) vectors ----------------------------
+
+
+def _sym_get(m, i, j):
+    return m[(i, j) if i <= j else (j, i)]
+
+
+def _factor_step(Sh, u, v, ph, a, p):
+    """One seeded step of the Cholesky recursion (see ops.seq).
+
+    ``Sh`` is the symmetric post-update state as {(i, j): vec, i <= j}.
+    Returns the new state, the pivot d and the factor vector w.
+    """
+    S = {k: ph[k[0]] * ph[k[1]] * Sh[k] for k in Sh}
+    su = [sum(_sym_get(S, i, j) * u[j] for j in range(p)) for i in range(p)]
+    d = a - sum(u[i] * su[i] for i in range(p))
+    w = [(v[i] - su[i]) / d for i in range(p)]
+    Sh = {(i, j): S[(i, j)] + d * w[i] * w[j] for (i, j) in S}
+    return Sh, d, w
+
+
+def _sym_keys(p):
+    return [(i, j) for i in range(p) for j in range(i, p)]
+
+
+def _load_step(u_ref, v_ref, ph_ref, a_ref, y_ref, l, p):
+    u = [u_ref[k, l, :] for k in range(p)]
+    v = [v_ref[k, l, :] for k in range(p)]
+    ph = [ph_ref[k, l, :] for k in range(p)]
+    return u, v, ph, a_ref[l, :], y_ref[l, :]
+
+
+def _elements_kernel(u_ref, v_ref, ph_ref, a_ref, y_ref, out_ref):
+    """Sweep 1: each lane's zero-seeded (A, J, C) element."""
+    p, L, nl = u_ref.shape
+    dtype = out_ref.dtype
+    keys = _sym_keys(p)
+    zero = jnp.zeros((nl,), dtype)
+    one = jnp.ones((nl,), dtype)
+
+    def body(l, carry):
+        Ac, Jc, Sh = carry
+        u, v, ph, a, _ = _load_step(u_ref, v_ref, ph_ref, a_ref, y_ref, l, p)
+        Sh, d, w = _factor_step(Sh, u, v, ph, a, p)
+        ut = [ph[i] * u[i] for i in range(p)]
+        uA = [sum(Ac[i][j] * ut[i] for i in range(p)) for j in range(p)]
+        Ac = [[ph[i] * Ac[i][j] - w[i] * uA[j] for j in range(p)]
+              for i in range(p)]
+        Jc = {(i, j): Jc[(i, j)] - uA[i] * uA[j] / d for (i, j) in keys}
+        return Ac, Jc, Sh
+
+    init = (
+        [[one if i == j else zero for j in range(p)] for i in range(p)],
+        {k: zero for k in keys},
+        {k: zero for k in keys},
+    )
+    Ac, Jc, Sh = lax.fori_loop(0, L, body, init)
+    for i in range(p):
+        for j in range(p):
+            out_ref[0, i, j, :] = Ac[i][j]
+            out_ref[1, i, j, :] = _sym_get(Jc, i, j)
+            out_ref[2, i, j, :] = _sym_get(Sh, i, j)
+
+
+def _factor_kernel(u_ref, v_ref, ph_ref, a_ref, y_ref, sh_ref,
+                   mat_ref, vec_ref, stat_ref):
+    """Sweep 2: seeded factorization, the lane's affine solve map
+    (M, m), the log-determinant and the smallest pivot."""
+    p, L, nl = u_ref.shape
+    dtype = mat_ref.dtype
+    keys = _sym_keys(p)
+    zero = jnp.zeros((nl,), dtype)
+    one = jnp.ones((nl,), dtype)
+
+    def body(l, carry):
+        Sh, M, m, ld, cl, mind = carry
+        u, v, ph, a, y = _load_step(u_ref, v_ref, ph_ref, a_ref, y_ref, l, p)
+        Sh, d, w = _factor_step(Sh, u, v, ph, a, p)
+        PhM = [[ph[i] * M[i][j] for j in range(p)] for i in range(p)]
+        g = [sum(u[i] * PhM[i][j] for i in range(p)) for j in range(p)]
+        M = [[PhM[i][j] - w[i] * g[j] for j in range(p)] for i in range(p)]
+        mh = [ph[i] * m[i] for i in range(p)]
+        z = y - sum(u[i] * mh[i] for i in range(p))
+        m = [mh[i] + w[i] * z for i in range(p)]
+        ld, cl = blocked._kahan_add(ld, cl, jnp.log(d))
+        return Sh, M, m, ld, cl, jnp.minimum(mind, d)
+
+    init = (
+        {(i, j): sh_ref[i, j, :] for (i, j) in keys},
+        [[one if i == j else zero for j in range(p)] for i in range(p)],
+        [zero] * p,
+        zero, zero,
+        jnp.full((nl,), jnp.inf, dtype),
+    )
+    _, M, m, ld, cl, mind = lax.fori_loop(0, L, body, init)
+    for i in range(p):
+        for j in range(p):
+            mat_ref[i, j, :] = M[i][j]
+        vec_ref[i, :] = m[i]
+    stat_ref[0, :] = ld + cl
+    stat_ref[1, :] = mind
+
+
+def _solve_kernel(u_ref, v_ref, ph_ref, a_ref, y_ref, sh_ref, h_ref,
+                  quad_ref):
+    """Sweep 3: seeded factorization again, with the forward
+    substitution from the lane's true incoming state; sum z^2 / d."""
+    p, L, nl = u_ref.shape
+    dtype = quad_ref.dtype
+    zero = jnp.zeros((nl,), dtype)
+
+    def body(l, carry):
+        Sh, h, q, cq = carry
+        u, v, ph, a, y = _load_step(u_ref, v_ref, ph_ref, a_ref, y_ref, l, p)
+        Sh, d, w = _factor_step(Sh, u, v, ph, a, p)
+        f = [ph[i] * h[i] for i in range(p)]
+        z = y - sum(u[i] * f[i] for i in range(p))
+        h = [f[i] + w[i] * z for i in range(p)]
+        q, cq = blocked._kahan_add(q, cq, z * z / d)
+        return Sh, h, q, cq
+
+    init = (
+        {(i, j): sh_ref[i, j, :] for (i, j) in _sym_keys(p)},
+        [h_ref[i, :] for i in range(p)],
+        zero, zero,
+    )
+    _, _, q, cq = lax.fori_loop(0, L, body, init)
+    quad_ref[0, :] = q + cq
+
+
+# -- wrapper -----------------------------------------------------------------
+
+
+def _to_lanes(ssm: SSM, resid, L, nl):
+    """Pad to (P2, L, B) lane layout: B a multiple of ``nl`` lanes, the
+    rank padded to a power of two.  Padding rows and channels are inert
+    (A=1, U=V=0, phi=1, y=0)."""
+    n, p = ssm.U.shape
+    p2 = _pow2(p)
+    b = -(-(-(-n // L)) // nl) * nl
+    pad = b * L - n
+    dtype = ssm.U.dtype
+
+    def chans(x, fill):
+        x = jnp.pad(x, ((0, pad), (0, p2 - p)), constant_values=fill)
+        return x.reshape(b, L, p2).transpose(2, 1, 0)
+
+    def rows(x, fill):
+        return jnp.pad(x, (0, pad), constant_values=fill).reshape(b, L).T
+
+    return (
+        chans(ssm.U, 0), chans(ssm.V, 0), chans(ssm.phi, 1),
+        rows(ssm.A, 1), rows(resid.astype(dtype), 0), b,
+    )
+
+
+def _call(kernel, ins, out_shapes, nl, interpret):
+    """One kernel sweep: a program per ``nl`` lanes (one lane per
+    thread), every operand blocked along its last (lane) axis."""
+    b = ins[0].shape[-1]
+
+    def spec(shape):
+        lead = len(shape) - 1
+        return pl.BlockSpec(
+            shape[:-1] + (nl,), lambda i: (0,) * lead + (i,)
+        )
+
+    return pl.pallas_call(
+        kernel,
+        grid=(b // nl,),
+        in_specs=[spec(x.shape) for x in ins],
+        out_specs=[spec(s.shape) for s in out_shapes],
+        out_shape=out_shapes,
+        compiler_params=plgpu.CompilerParams(
+            num_warps=max(1, min(8, nl // 32))
+        ),
+        backend="triton",
         interpret=interpret,
-    )(u, v, ph, a, y)
+        name=kernel.__name__.strip("_"),
+    )(*ins)
 
+
+@f32_matmuls
+def _impl(ssm: SSM, resid, steps, lanes, interpret):
+    if not interpret:
+        require_gpu()
+    n, p = ssm.U.shape
+    dtype = ssm.U.dtype
+    L = _pow2(steps or default_steps(n))
+    nl = _pow2(lanes)
+    u, v, ph, a, y, b = _to_lanes(ssm, resid, L, nl)
+    p2 = u.shape[0]
+    data = (u, v, ph, a, y)
+
+    (el,) = _call(
+        _elements_kernel, data,
+        [jax.ShapeDtypeStruct((4, p2, p2, b), dtype)],
+        nl, interpret,
+    )
+    # (P2, P2, B) planes -> (B, P2, P2) elements for the prefix scans.
+    A_el, J_el, C_el = (jnp.moveaxis(el[k], -1, 0) for k in range(3))
+    sh_in = blocked._exclusive_prefix_elements((A_el, J_el, C_el))[2]
+
+    sh_lanes = jnp.moveaxis(sh_in, 0, -1)
+    M, m, stat = _call(
+        _factor_kernel, data + (sh_lanes,),
+        [
+            jax.ShapeDtypeStruct((p2, p2, b), dtype),
+            jax.ShapeDtypeStruct((p2, b), dtype),
+            jax.ShapeDtypeStruct((2, b), dtype),
+        ],
+        nl, interpret,
+    )
+    _, h = blocked._exclusive_prefix_affine(jnp.moveaxis(M, -1, 0), m.T)
+
+    (quad,) = _call(
+        _solve_kernel, data + (sh_lanes, h.T),
+        [jax.ShapeDtypeStruct((2, b), dtype)],
+        nl, interpret,
+    )
     ll = -0.5 * (
-        quad[0, 0]
-        + ld[0, 0]
+        jnp.sum(quad[0])
+        + jnp.sum(stat[0])
         + n * jnp.log(2.0 * jnp.pi).astype(dtype)
     )
-    ok = (mind[0, 0] > 0) & jnp.isfinite(ll)
+    ok = (jnp.min(stat[1]) > 0) & jnp.isfinite(ll)
     return jnp.where(ok, ll, -jnp.inf), ok
 
 
-def _gp_log_likelihood_impl(ssm: SSM, resid, num_blocks=None,
-                            interpret=False):
-    n, p = ssm.U.shape
-    b = num_blocks or default_num_blocks(n, p)
-    if b & (b - 1):
-        raise ValueError("num_blocks must be a power of two")
-    u, v, ph, a, y, L = _to_lanes(ssm, resid, b)
-    return run_kernel(u, v, ph, a, y, n, interpret=interpret)
+@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4))
+def gp_log_likelihood(ssm: SSM, resid, steps=None, lanes=128,
+                      interpret=False):
+    """GP log-likelihood (ll, ok) through the Triton kernels.
 
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3))
-def gp_log_likelihood(ssm: SSM, resid, num_blocks=None, interpret=False):
-    """Differentiable fused-Pallas GP log-likelihood: (ll, ok).
-
-    Forward: the single fused kernel.  Backward: reverse-mode through the
-    mathematically identical lax blocked implementation (exact, block-
-    parallel); use :mod:`ops.tangent` for the fast forward-mode gradient.
+    Same semantics as :func:`ops.blocked.gp_log_likelihood`.  ``steps``
+    is the number of time steps per lane (default
+    :func:`default_steps`), ``lanes`` the lanes per Triton program (one
+    per thread).  The gradient is reverse-mode AD through the blocked
+    solver.
     """
-    return _gp_log_likelihood_impl(
-        ssm, resid, num_blocks=num_blocks, interpret=interpret
-    )
+    return _impl(ssm, resid, steps, lanes, interpret)
 
 
-def _ll_fwd(ssm, resid, num_blocks, interpret):
-    out = _gp_log_likelihood_impl(
-        ssm, resid, num_blocks=num_blocks, interpret=interpret
-    )
-    return out, (ssm, resid)
+def _fwd(ssm, resid, steps, lanes, interpret):
+    return _impl(ssm, resid, steps, lanes, interpret), (ssm, resid)
 
 
-def _ll_bwd(num_blocks, interpret, res, g):
+def _bwd(steps, lanes, interpret, res, g):
     ssm, resid = res
-    g_ll, _ = g
-
-    def ll_only(ssm, resid):
-        ll, _ = blocked.gp_log_likelihood(ssm, resid)
-        return ll
-
-    _, vjp = jax.vjp(ll_only, ssm, resid)
-    d_ssm, d_resid = vjp(g_ll)
-    return d_ssm, d_resid
+    _, vjp = jax.vjp(
+        lambda s, r: blocked.gp_log_likelihood(s, r)[0], ssm, resid
+    )
+    return vjp(g[0])
 
 
-gp_log_likelihood.defvjp(_ll_fwd, _ll_bwd)
+gp_log_likelihood.defvjp(_fwd, _bwd)

@@ -1,6 +1,6 @@
 """Closed-form celerite kernel and PSD evaluation.
 
-TPU-native analog of the reference free functions ``get_kernel_value`` and
+JAX analog of the reference free functions ``get_kernel_value`` and
 ``get_psd_value`` (/root/reference/cpp/include/celerite/utils.h:106-163),
 written as pure jnp expressions so they fuse under jit and broadcast over
 arbitrary lag/frequency shapes.

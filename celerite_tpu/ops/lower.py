@@ -1,8 +1,8 @@
 """Lowering: coefficient arrays -> semiseparable (U, V, phi, A) arrays.
 
 The reference builds these row-by-row inside the factorization loop
-(/root/reference/cpp/include/celerite/solver/cholesky.h:103-152).  On TPU the
-build is embarrassingly parallel, so it is a single fused jnp expression over
+(/root/reference/cpp/include/celerite/solver/cholesky.h:103-152).  On an
+accelerator the build is embarrassingly parallel, so it is a single fused jnp expression over
 the whole time axis; the solver scans then consume dense (N, P) arrays.
 
 Conventions (matching the reference recursion):
@@ -147,8 +147,8 @@ def lower(
 def lower_np(coeffs, t, diag, A_gen=None, U_gen=None, V_gen=None):
     """Pure-NumPy float64 twin of :func:`lower` for the eager host path.
 
-    The jnp lowering pays one XLA dispatch per expression — milliseconds
-    through a remote runtime, which swamps small-N eager calls (the
+    The jnp lowering pays one XLA dispatch per expression, which swamps
+    small-N eager calls (the
     reference's N=200 single eval is 0.26 ms, example-stats.tex).  This
     twin feeds the native C++ core (celerite_tpu.native) with zero
     device traffic.  f64 exp/sin/cos need no compensated variants.

@@ -1,22 +1,19 @@
 """Float32 matmul-precision pinning for the semiseparable algebra.
 
-On TPU, XLA's default matmul/dot precision for float32 operands is
-*bfloat16* on the MXU (~8 mantissa bits).  The celerite recursions and
-the cross-block Riccati/affine prefix compositions are pivot-critical:
-the factor pivots ``d_n`` sit orders of magnitude below the raw data
-scale (min d ~ 1e-2 on the N=1e6 two-SHO bench config), so an ~8-bit
-seed error from a bf16 8x8 compose flips pivots negative and the
-``(ok, ll)`` contract reports an (incorrect) non-PD failure — measured
-on a v5e: the P=8 adjoint/blocked pipelines returned -inf while the
-identical arithmetic in f32 (CPU, or the Pallas kernels' elementwise VPU
-forms) is healthy with min d = 1.05e-2.
+On an NVIDIA GPU, XLA may run a float32 matmul/dot in TF32 on the tensor
+cores (a 10-bit mantissa, about three decimal digits).  The celerite
+recursions and the cross-block Riccati/affine prefix compositions are
+pivot-critical: the factor pivots ``d_n`` sit orders of magnitude below
+the raw data scale, so a TF32-class seed error in a (P, P) composition
+can flip pivots negative, and the ``(ok, ll)`` contract then reports an
+(incorrect) non-PD failure.
 
 Every module whose numeric path uses ``@`` / ``jnp.dot`` / ``einsum``
 wraps its public entry points with :func:`f32_matmuls` so those ops bind
-at HIGHEST (true f32) precision.  The affected contractions are tiny
-(P x P with P <= ~32), so the 6-pass f32 emulation cost is noise; the
-Pallas kernels themselves are unaffected (they use unrolled elementwise
-multiply-accumulate on the VPU, which is always f32).
+at true float32 precision (or passes ``precision="highest"`` itself).
+The affected contractions are tiny (P x P with P <= ~32), so the cost
+is noise; the Triton kernels of ops/fused.py use unrolled elementwise
+multiply-adds, which are always float32.
 """
 
 from __future__ import annotations

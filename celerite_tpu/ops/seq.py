@@ -1,10 +1,10 @@
 """Sequential ``lax.scan`` semiseparable solver.
 
-TPU-native replacement for the reference's C++ Cholesky recursion
+JAX replacement for the reference's C++ Cholesky recursion
 (/root/reference/cpp/include/celerite/solver/cholesky.h:41-698).  Every op is
 a pure function of dense (N, P) arrays: jit-able, vmap-able, and
 differentiable with ``jax.grad`` (scan's built-in reverse-mode).  The
-block-parallel TPU path lives in ``blocked.py`` and reuses the per-step math
+block-parallel path lives in ``blocked.py`` and reuses the per-step math
 defined here; this module is the always-correct baseline and the within-block
 kernel.
 

@@ -31,6 +31,9 @@ semiseparable solver in tests (the same identity the CARMA tests use).
 
 from __future__ import annotations
 
+import functools
+from types import SimpleNamespace
+
 import numpy as np
 
 import jax
@@ -324,19 +327,37 @@ def _filter_smoother(real_, dt, yv, rv, obs):
     return mean, var, jnp.sum(lls)
 
 
+@functools.partial(jax.jit, static_argnames=("jr", "jc"))
+def _filter_smoother_jit(c_real, c_comp, d_comp, Pinf, H, dt, yv, rv, obs,
+                         *, jr, jc):
+    """:func:`_filter_smoother` as one compiled program per (jr, jc, n)."""
+    real_ = SimpleNamespace(p=jr + 2 * jc, jr=jr, jc=jc, c_real=c_real,
+                            c_comp=c_comp, d_comp=d_comp, Pinf=Pinf, H=H)
+    return _filter_smoother(real_, dt, yv, rv, obs)
+
+
+def _run(real_, dt, yv, rv, obs):
+    """Run the compiled filter/smoother on a host realization."""
+    dtype = jnp.result_type(float)
+    return _filter_smoother_jit(
+        *[jnp.asarray(x, dtype) for x in (
+            real_.c_real, real_.c_comp, real_.d_comp, real_.Pinf, real_.H,
+            dt, yv, rv, obs,
+        )],
+        jr=int(real_.jr), jc=int(real_.jc),
+    )
+
+
 @f32_matmuls
 def kalman_log_likelihood(coeffs: Coefficients, t, diag, y):
     """Data log-likelihood via the filter (cross-check utility)."""
     real_ = realize(coeffs)
     if real_ is None:
         raise ValueError("kernel is not independently realizable")
-    t = jnp.asarray(t)
-    dt = jnp.concatenate([jnp.zeros((1,), t.dtype), jnp.diff(t)])
-    rv = jnp.asarray(diag) + jnp.asarray(coeffs.jitter, t.dtype)
-    obs = jnp.ones(t.shape[0], t.dtype)
-    _, _, ll = _filter_smoother(
-        real_, dt, jnp.asarray(y), rv, obs
-    )
+    t = np.asarray(t, float)
+    dt = np.concatenate([[0.0], np.diff(t)])
+    rv = np.asarray(diag, float) + float(np.asarray(coeffs.jitter))
+    _, _, ll = _run(real_, dt, y, rv, np.ones(t.shape[0]))
     return ll
 
 
@@ -374,13 +395,7 @@ def predict_var(coeffs: Coefficients, t_train, diag, resid, t_test):
     rv[train_mask] = diag[src_s[train_mask]] + jitter
 
     dt = np.concatenate([[0.0], np.diff(t_s)])
-    mean_s, var_s, _ = _filter_smoother(
-        real_,
-        jnp.asarray(dt),
-        jnp.asarray(yv),
-        jnp.asarray(rv),
-        jnp.asarray(obs_np),
-    )
+    mean_s, var_s, _ = _run(real_, dt, yv, rv, obs_np)
     mean_s = np.asarray(mean_s)
     var_s = np.asarray(var_s)
 

@@ -1,8 +1,8 @@
 """Mesh construction and sharded-chain execution.
 
 Design (scaling-book recipe): one logical axis ``"chains"`` for
-chain/particle parallelism laid out over all devices (ICI within a slice,
-DCN across hosts), with per-chain work vmapped so each device runs a dense
+chain/particle parallelism laid out over all devices (the intra-host
+links, and the network across hosts), with per-chain work vmapped so each device runs a dense
 batch of chains.  Cross-chain adaptation statistics (dual-averaging step
 size, mass-matrix moments) ride a single ``psum`` per step.
 """

@@ -1,7 +1,7 @@
 """Multi-host bring-up helpers.
 
-Single-host multi-chip needs nothing special; across hosts (a TPU pod
-slice or CPU fleet) JAX requires one ``jax.distributed.initialize`` call
+Single-host multi-device needs nothing special; across hosts (a GPU
+cluster or CPU fleet) JAX requires one ``jax.distributed.initialize`` call
 per process before any computation.  These helpers wrap that plus the
 host-prefixed RNG and the "global mesh over all processes" construction
 used by the sharded samplers.
@@ -34,8 +34,6 @@ __all__ = ["initialize", "is_distributed_initialized", "global_chain_mesh",
 _AUTO_ENV_VARS = (
     "JAX_COORDINATOR_ADDRESS",
     "COORDINATOR_ADDRESS",
-    "TPU_WORKER_HOSTNAMES",        # Cloud TPU pod
-    "MEGASCALE_COORDINATOR_ADDRESS",
     "OMPI_MCA_orte_hnp_uri",       # OpenMPI
     "PMI_SIZE",                    # MPICH / Hydra
     "SLURM_NTASKS",                # Slurm
@@ -65,7 +63,7 @@ def initialize(coordinator_address=None, num_processes=None,
     - explicit ``coordinator_address`` (+ ``num_processes`` /
       ``process_id``) always initializes;
     - otherwise, initialization is attempted only when a recognized
-      cluster environment variable is present (TPU pod, Slurm, MPI,
+      cluster environment variable is present (Slurm, MPI,
       JAX_COORDINATOR_ADDRESS), letting JAX auto-detect the topology;
     - with neither, this is a single-process run and the call is a no-op.
 
@@ -103,7 +101,7 @@ def global_chain_mesh():
     """A 1-D mesh over every device of every process (chains axis).
 
     With chains sharded over this mesh, the warmup psum collectives ride
-    ICI within a slice and DCN across hosts automatically.
+    the intra-host links and the network across hosts automatically.
     """
     import jax
     from jax.sharding import Mesh

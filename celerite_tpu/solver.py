@@ -139,8 +139,9 @@ class CholeskySolver:
         "native" (the eager C++ core — zero XLA dispatch, f64), or
         "auto" (native below 4096 points when the toolchain is present
         — a lone small-N eager eval is dispatch-latency-bound on any
-        accelerator, ~ms through a remote runtime vs ~0.1 ms in the
-        native core; then scan, then blocked above 16384 points)."""
+        accelerator, ~0.1 ms in the native core; then scan, then
+        blocked above 16384 points).  The 4096 threshold is not yet
+        re-measured on a GPU."""
         self._method = method
         self._reset()
 

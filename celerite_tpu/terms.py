@@ -7,7 +7,7 @@ parameters to the six coefficient arrays
 sums concatenate coefficient blocks; products expand trigonometric
 cross-products; validity is checked with Sturm's theorem on the PSD.
 
-TPU-native additions:
+Accelerator additions:
 
 - Every term also provides a **traceable, statically-shaped** lowering,
   ``get_padded_coefficients``, usable inside ``jit``/``grad``/``vmap``.  The

@@ -1,6 +1,6 @@
 """Debug modes: NaN checking and cross-backend agreement assertions.
 
-The TPU-native substitute for the reference's (absent) sanitizer story
+The accelerator substitute for the reference's (absent) sanitizer story
 (SURVEY.md 5.2): determinism/NaN issues on accelerators surface as value
 disagreements, so the first tool is an assertion that every solver
 backend computes the same log-likelihood.
@@ -30,13 +30,11 @@ def debug_mode(nans=True, disable_jit=False):
         jax.config.update("jax_debug_nans", old_nans)
 
 
-def check_backends_agree(ssm, resid, rtol=1e-6, include_native=True,
-                         include_pallas=False):
-    """Assert seq / blocked (/ native / pallas) agree on the ll.
+def check_backends_agree(ssm, resid, rtol=1e-6, include_native=True):
+    """Assert seq / blocked (/ native) agree on the ll.
 
     Returns the dict of per-backend values; raises AssertionError with
-    the values on disagreement.  ``include_pallas`` uses interpret mode
-    (safe off-TPU).
+    the values on disagreement.
     """
     import jax.numpy as jnp
 
@@ -54,13 +52,6 @@ def check_backends_agree(ssm, resid, rtol=1e-6, include_native=True,
             np.asarray(resid, dtype=np.float64),
         )
         values["native"] = float(ll_n)
-    if include_pallas:
-        from ..ops import pallas_solver
-
-        ll_p, _ = pallas_solver.gp_log_likelihood(
-            ssm, resid, interpret=True
-        )
-        values["pallas"] = float(ll_p)
 
     base = values["seq"]
     scale = max(abs(base), 1.0)

@@ -7,14 +7,19 @@ device traces viewable in TensorBoard/Perfetto.
 from __future__ import annotations
 
 import contextlib
+import tempfile
 
 __all__ = ["trace"]
 
 
 @contextlib.contextmanager
-def trace(logdir="/tmp/celerite_tpu_trace"):
-    """Capture a jax profiler trace around the enclosed block."""
+def trace(logdir=None):
+    """Capture a jax profiler trace around the enclosed block (into a
+    fresh temporary directory unless ``logdir`` is given)."""
     import jax
+
+    if logdir is None:
+        logdir = tempfile.mkdtemp(prefix="celerite_trace_")
 
     jax.profiler.start_trace(logdir)
     try:

@@ -4,7 +4,7 @@
 The reference 'first' tutorial (docs/tutorials/first.rst) fits a
 stochastically-driven damped harmonic oscillator to an irregularly sampled
 light curve and draws the conditional prediction; this reproduces that
-workflow with the TPU-native stack (NUTS instead of scipy.optimize).
+workflow with the JAX stack (NUTS instead of scipy.optimize).
 """
 
 import os

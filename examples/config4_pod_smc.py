@@ -10,15 +10,13 @@ Run with a virtual mesh:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
       python examples/config4_pod_smc.py
 
-This example is the runnable small-scale tour.  The MEASURED config[4]
-configuration is benchmarks/fleet_smc.py: >= 10,240 ragged curves
-folded onto the fused-kernel lanes, an exactly-aliased bimodal
-frequency posterior (regular cadence, prior symmetric about pi — true
-mode weights 0.5/0.5 by construction), ``sample_smc_sharded`` with
-``host_loop=True`` + ``particle_chunk`` for fleet-scale memory, and
-the committed record benchmarks/results/fleet_smc_tpu.json.  Scale
-this example up with ``--curves 10240 --particles 512`` to reproduce
-that regime.
+This example is the runnable small-scale tour.  The full-size config[4]
+rig is benchmarks/fleet_smc.py: >= 10,240 ragged curves, an
+exactly-aliased bimodal frequency posterior (regular cadence, prior
+symmetric about pi — true mode weights 0.5/0.5 by construction), and
+``sample_smc_sharded`` with ``host_loop=True`` + ``particle_chunk`` for
+fleet-scale memory.  Scale this example up with
+``--curves 10240 --particles 512`` to approach that regime.
 """
 
 import os
@@ -64,25 +62,10 @@ def main(n_particles=512, seed=4, n_curves=32):
     batch = make_batch(n_curves)
     kernel = terms.SHOTerm(log_S0=0.0, log_Q=1.0, log_omega0=1.0)
 
-    # On TPU the default path is fleet folding: every curve occupies one
-    # virtual lane of the fused4 kernels, so each particle's
-    # fleet-summed likelihood (and the HMC-mutation gradients, through
-    # the kernels' hand-written VJP) costs ONE launch
-    # (data.make_fleet_loglik; benchmarks/fleet.py measures it at 4096
-    # curves).  Off TPU the masked vmapped scan has identical semantics.
-    if jax.default_backend() == "tpu":
-        from celerite_tpu.data import make_fleet_loglik
-
-        fleet = make_fleet_loglik(kernel, batch)
-
-        def per_curve(theta):
-            return fleet(theta)
-    else:
-        def per_curve(theta):
-            return batched_gp_log_likelihood(kernel, theta, batch)
-
+    # Each particle's likelihood is the masked, vmapped scan over the
+    # fleet (data.batched_gp_log_likelihood).
     def log_like(theta):
-        lls, oks = per_curve(theta)
+        lls, oks = batched_gp_log_likelihood(kernel, theta, batch)
         total = jnp.sum(jnp.where(oks, lls, -jnp.inf))
         return jnp.where(jnp.isfinite(total), total, -1e12)
 

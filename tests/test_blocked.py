@@ -190,7 +190,7 @@ def test_blocked_matmul_matches_seq():
 def test_cpu_n700_fitmean_default_path_safe():
     """Environment landmine regression (ROADMAP 2b): jax.grad of the
     *blocked* solver with an active mean at N=700 heap-corrupts inside
-    XLA:CPU slice-transpose (jaxlib bug; TPU unaffected).  The facade's
+    XLA:CPU slice-transpose (a jaxlib CPU bug).  The facade's
     default path must stay clear of it: solver="auto" below 4096 points
     routes to the sequential scan, and its gradient at exactly N=700 +
     fit_mean must be finite and match finite differences.

@@ -75,41 +75,37 @@ def test_carma_exposed_in_solver_module():
     assert solver.CARMASolver is CARMASolver
 
 
-def test_kalman_real_split_matches_complex():
-    """The TPU real/imaginary-split filter (ops/carma._kalman_ll_real)
-    is bit-compatible math with the complex scan (complex scans do not
-    run on TPU backends; reference analog carma.h:221-239)."""
-    import numpy as np
+@pytest.mark.parametrize("ar, ma", [
+    ([np.log(2.0), np.log(0.7)], [np.log(1.2)]),
+    ([np.log(2.0), np.log(0.7), np.log(0.3)], []),
+    ([np.log(4.0), np.log(0.5), np.log(1.5), np.log(0.8)],
+     [np.log(1.0), np.log(0.9)]),
+])
+def test_kalman_matches_celerite_loglik(ar, ma):
+    """The complex-arithmetic Kalman filter (the one CARMA path) agrees
+    with the semiseparable likelihood of the converted celerite
+    coefficients (reference analog carma.h:221-239)."""
     import jax.numpy as jnp
-    from celerite_tpu.ops.carma import (
-        CARMASolver, _kalman_ll, _kalman_ll_real,
-    )
+    from celerite_tpu.ops import seq
+    from celerite_tpu.ops.carma import CARMASolver
+    from celerite_tpu.ops.lower import Coefficients, lower
 
     rng = np.random.default_rng(3)
     n = 256
     t = np.sort(rng.uniform(0, 50, n))
     y = np.sin(0.7 * t) + 0.3 * rng.standard_normal(n)
     yerr = np.full(n, 0.1)
-    for ar, ma in [
-        ([np.log(2.0), np.log(0.7)], [np.log(1.2)]),
-        ([np.log(2.0), np.log(0.7), np.log(0.3)], []),
-        ([np.log(4.0), np.log(0.5), np.log(1.5), np.log(0.8)],
-         [np.log(1.0), np.log(0.9)]),
-    ]:
-        s = CARMASolver(0.1, ar, ma)
-        args = s._scan_args(t, y, yerr)
-        ll_c, ok_c = _kalman_ll(
-            jnp.asarray(s.b), jnp.asarray(s.V),
-            jnp.asarray(s.arroots), *args,
-        )
-        ll_r, ok_r = _kalman_ll_real(
-            jnp.asarray(s.b.real), jnp.asarray(s.b.imag),
-            jnp.asarray(s.V.real), jnp.asarray(s.V.imag),
-            jnp.asarray(s.arroots.real), jnp.asarray(s.arroots.imag),
-            *args,
-        )
-        assert bool(ok_c) == bool(ok_r)
-        np.testing.assert_allclose(float(ll_r), float(ll_c), rtol=1e-12)
+    s = CARMASolver(0.1, ar, ma)
+    ll_k = s.log_likelihood(t, y, yerr)
+    coeffs = Coefficients(
+        *[jnp.asarray(c) for c in s.get_celerite_coeffs()],
+        jitter=jnp.asarray(0.0),
+    )
+    ll_c, ok = seq.gp_log_likelihood(
+        lower(coeffs, jnp.asarray(t), jnp.asarray(yerr**2)), jnp.asarray(y)
+    )
+    assert bool(ok)
+    np.testing.assert_allclose(ll_k, float(ll_c), rtol=1e-8)
 
 
 def test_carma_quiet_negative_variance():

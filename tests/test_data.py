@@ -77,18 +77,9 @@ def test_batched_loglik_matches_per_curve():
         )
 
 
-@pytest.mark.slow
-def test_make_fleet_loglik_matches_batched():
-    """Fleet-folded loglik == the vmapped masked-scan batch path."""
-    import jax
-    import jax.numpy as jnp
-
+def _fleet():
     from celerite_tpu import terms
-    from celerite_tpu.data import (LightCurveBatch,
-                                   batched_gp_log_likelihood,
-                                   make_fleet_loglik)
-    from celerite_tpu.ops import fused4, lanes4
-    from celerite_tpu.ops.lower import Coefficients
+    from celerite_tpu.data import LightCurveBatch
 
     rng = np.random.default_rng(3)
     ts, ys, es = [], [], []
@@ -99,32 +90,48 @@ def test_make_fleet_loglik_matches_batched():
         es.append(np.full(n, 0.2))
     batch = LightCurveBatch.from_ragged(ts, ys, es)
     kernel = terms.SHOTerm(log_S0=0.1, log_Q=0.8, log_omega0=0.5)
+    return batch, kernel, (ts, ys, es)
+
+
+def test_make_fleet_loglik_matches_batched():
+    """make_fleet_loglik == the vmapped masked-scan batch path == each
+    curve's own unpadded likelihood."""
+    import jax.numpy as jnp
+
+    from celerite_tpu import GP
+    from celerite_tpu.data import (batched_gp_log_likelihood,
+                                   make_fleet_loglik)
+
+    batch, kernel, (ts, ys, es) = _fleet()
     theta = jnp.asarray(kernel.get_parameter_vector())
-
     lls_ref, oks_ref = batched_gp_log_likelihood(kernel, theta, batch)
+    lls, oks = make_fleet_loglik(kernel, batch)(theta)
+    np.testing.assert_allclose(np.asarray(lls), np.asarray(lls_ref),
+                               rtol=1e-12)
+    assert bool(np.all(oks))
+    for i, (t, y, e) in enumerate(zip(ts, ys, es)):
+        gp = GP(kernel)
+        gp.compute(t, e)
+        np.testing.assert_allclose(float(lls[i]), gp.log_likelihood(y),
+                                   rtol=1e-9)
 
-    # CPU: drive the TPU-path machinery explicitly (interpret mode)
-    jr, jc = kernel.padded_size
-    plan = lanes4.make_plan4_curves(
-        np.asarray(batch.t, np.float64), np.asarray(batch.y, np.float64),
-        np.asarray(batch.yerr, np.float64) ** 2, batch.lengths,
-        dtype=np.float64,
-    )
-    fn = fused4.build_ll_and_grad(
-        plan, jr, jc, n_seg=plan.num_blocks, state_seg=1, interpret=True
-    )
-    coeffs = Coefficients(
-        *kernel.get_padded_coefficients(theta),
-        jitter=kernel.get_jitter(theta),
-    )
-    lls, oks = fn(lanes4.pack_cf(coeffs, dtype=jnp.float64), plan.y)
-    np.testing.assert_allclose(
-        np.asarray(lls[:3]), np.asarray(lls_ref), rtol=1e-9
-    )
-    assert all(bool(o) for o in oks[:3])
 
-    # and the public fallback path (off-TPU -> batched scan)
-    fleet = make_fleet_loglik(kernel, batch)
-    lls2, oks2 = fleet(theta)
-    np.testing.assert_allclose(np.asarray(lls2), np.asarray(lls_ref),
-                               rtol=1e-9)
+def test_make_fleet_loglik_chains_sum_curves():
+    """n_chain > 1: each chain's (ll, ok) is the sum over the fleet of
+    its own per-curve likelihoods."""
+    import jax.numpy as jnp
+
+    from celerite_tpu.data import (batched_gp_log_likelihood,
+                                   make_fleet_loglik)
+
+    batch, kernel, _ = _fleet()
+    theta = jnp.asarray(kernel.get_parameter_vector())
+    thetas = theta[None, :] + jnp.asarray(
+        [[0.0, 0.0, 0.0], [0.1, -0.2, 0.05], [-0.3, 0.1, 0.2]]
+    )
+    lls, oks = make_fleet_loglik(kernel, batch, n_chain=3)(thetas)
+    assert lls.shape == (3,) and bool(np.all(oks))
+    for c in range(3):
+        per, _ = batched_gp_log_likelihood(kernel, thetas[c], batch)
+        np.testing.assert_allclose(float(lls[c]), float(jnp.sum(per)),
+                                   rtol=1e-12)

@@ -2,9 +2,8 @@
 ops/dsblocked and the ``precision="ds"`` mode of GP.build_loglik.
 
 The reference bar is its float64 core
-(/root/reference/cpp/include/celerite/solver/cholesky.h:41-210); on TPU
-hardware (f32 datapath) the double-single backend is the native
-equivalent.  These tests pin:
+(/root/reference/cpp/include/celerite/solver/cholesky.h:41-210); on
+float32 hardware the double-single backend is its equivalent.  These tests pin:
 
 - dsa primitive accuracy (add/mul/div/transcendentals ~1e-13),
 - the end-to-end ll against the f64 oracle at the f32-input
@@ -14,7 +13,7 @@ equivalent.  These tests pin:
 
 Requires exact compensated f32 arithmetic under jit; conftest pins
 ``--xla_cpu_max_isa=SSE4_2`` because XLA:CPU's AVX2 FMA contraction
-silently breaks it (TPU preserves it natively).
+silently breaks it.
 """
 
 import numpy as np

@@ -1,7 +1,7 @@
 """General (A, U, V) semiseparable blocks on the fast solver paths.
 
 The reference runs general blocks through its native-speed core in-loop
-(cholesky.h:65-69, 148-152).  Here the TPU equivalent is the lowering
+(cholesky.h:65-69, 148-152).  Here the equivalent is the lowering
 contract: general blocks become phi=1 columns of the (N, P) SSM arrays
 (ops/lower.py:133-137), so every solver backend — sequential scan,
 block-parallel Riccati, and the facade — consumes them at full speed.

@@ -545,15 +545,16 @@ def test_smc_fused_path_matches_ad():
 
 
 def test_advi_gp_fused_closure():
-    """End-to-end: a GP build_logprob closure (fused path carries
-    value_and_grad) optimizes through fit_advi's folded branch."""
+    """End-to-end: a GP build_logprob closure carrying a one-pass
+    value_and_grad (``fast_grad=True``: the blocked solver's AD, as on
+    the fused route) optimizes through fit_advi's folded branch."""
     rng = np.random.default_rng(7)
     t = np.sort(rng.uniform(0, 10, 256))
     yerr = 0.1 * np.ones_like(t)
     gp = GP(terms.SHOTerm(log_S0=0.0, log_Q=0.5, log_omega0=0.5))
     gp.compute(t, yerr)
     y = np.asarray(gp.sample(seed=3))
-    lp = gp.build_logprob(t, y, yerr, solver="fused")
+    lp = gp.build_logprob(t, y, yerr, solver="blocked", fast_grad=True)
     assert hasattr(lp, "value_and_grad")
     res = fit_advi(
         lp, jnp.asarray(gp.get_parameter_vector()),

@@ -137,3 +137,36 @@ def test_blocked_all_observed_and_duplicate_times():
         np.asarray(v_b), np.asarray(v_seq), rtol=1e-9, atol=1e-11
     )
     np.testing.assert_allclose(float(ll_b), float(ll_seq), rtol=1e-11)
+
+
+@pytest.mark.parametrize("n_train,n_test", [(150, 40), (6000, 3000)])
+def test_gp_predict_size_routing(monkeypatch, n_train, n_test):
+    """GP.predict(return_var=True) takes the blocked engine at every
+    merged size, small and large, and gives ops/smoother's answer."""
+    from celerite_tpu import GP, terms
+
+    calls = []
+    real_parallel = pkalman.predict_var_parallel
+
+    def spy(*args, **kwargs):
+        calls.append(1)
+        return real_parallel(*args, **kwargs)
+
+    monkeypatch.setattr(pkalman, "predict_var_parallel", spy)
+    rng = np.random.default_rng(11)
+    t = np.sort(rng.uniform(0, 10.0, n_train))
+    yerr = np.full_like(t, 0.2)
+    y = np.sin(t) + 0.2 * rng.standard_normal(t.size)
+    grid = np.linspace(-0.5, 10.5, n_test)
+    kernel = terms.SHOTerm(log_S0=0.1, log_Q=1.0, log_omega0=0.5)
+    gp = GP(kernel)
+    gp.compute(t, yerr)
+    mu, var = gp.predict(y, grid, return_var=True)
+    assert len(calls) == 1
+    coeffs = Coefficients(
+        *[jnp.asarray(c) for c in kernel.coefficients],
+        jitter=jnp.asarray(kernel.jitter),
+    )
+    mu_s, var_s = smoother.predict_var(coeffs, t, yerr**2, y, grid)
+    np.testing.assert_allclose(mu, mu_s, rtol=1e-9, atol=1e-11)
+    np.testing.assert_allclose(var, var_s, rtol=1e-9, atol=1e-11)

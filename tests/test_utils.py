@@ -18,9 +18,7 @@ def test_backends_agree():
         jitter=jnp.zeros(()),
     )
     ssm = lower(coeffs, jnp.asarray(t), jnp.full(300, 0.04))
-    vals = check_backends_agree(
-        ssm, jnp.asarray(np.sin(t)), include_pallas=True
-    )
+    vals = check_backends_agree(ssm, jnp.asarray(np.sin(t)))
     assert set(vals) >= {"seq", "blocked"}
 
 
@@ -124,3 +122,36 @@ def test_accurate_exp():
     # f64 passes straight through.
     g64 = np.asarray(accurate_exp(jnp.asarray(x64)))
     np.testing.assert_allclose(g64, np.exp(x64), rtol=1e-15)
+
+
+def test_persistent_cache_honours_env(monkeypatch, tmp_path):
+    import jax
+
+    from celerite_tpu.utils import enable_persistent_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert enable_persistent_cache() == str(tmp_path)
+    # With the variable set, nothing is configured in code.
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_persistent_cache_defaults_inside_checkout(monkeypatch):
+    import os
+
+    import jax
+
+    from celerite_tpu.utils import cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        path = cache.enable_persistent_cache()
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert path == os.path.join(root, ".cache", "xla")
+        assert jax.config.jax_compilation_cache_dir == path
+        assert os.path.isdir(path)
+        with open(os.path.join(root, ".gitignore")) as f:
+            assert ".cache/" in f.read().split()
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
